@@ -1,0 +1,437 @@
+"""Fused batch-last solver engine — the production path for scenario batches.
+
+Counterpart of ``ilqr_tpu/batched.py``.  Every array carries the scenario
+batch as its trailing axis — trajectories ``[T+1, n, B]``, gains ``[T, m,
+n, B]``, per-lane scalars ``[B]`` — so that elementwise work and the fused
+Riccati kernel read consecutive lanes from consecutive addresses.  User
+dynamics/cost callables are written per-scenario and batched with
+``torch.func.vmap`` over that trailing axis, or called directly where the
+problem promises that they take trailing batch axes
+(``Problem.batch_trailing``).  Per-lane line search and convergence masks
+are those of the JAX engine.
+
+Where the JAX engine has ``lax.scan`` and ``lax.while_loop`` this one has
+Python loops; a loop's condition on device data (``all lanes accepted``,
+``any lane running``) costs one host synchronization per test.
+
+The backward recursion runs in the fused CUDA kernel
+(``backward_backend="pallas"``, the name kept from the JAX package) or as a
+batch-last Python loop (``"scan"``).
+
+Not ported yet, and refused rather than ignored: ``backward_backend=
+"associative"``, ``reg_in_value``, ``ddp``, ``parallel_alpha_block > 0``
+(the parallel-alpha ladder), and the chunked solver with straggler
+compaction.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.func import grad, jacfwd, jvp, vmap
+
+from ilqr_tpu_torch.config import DEFAULT_CONFIG, ILQRConfig, Status
+from ilqr_tpu_torch.ops import smallmat as sm
+from ilqr_tpu_torch.ops.cuda_riccati import (riccati_loop_bl,
+                                             riccati_scan_cuda_bl)
+from ilqr_tpu_torch.precision import highest_precision, resolve_device
+from ilqr_tpu_torch.problem import Problem
+from ilqr_tpu_torch.solver import SolverResult
+from ilqr_tpu_torch.step import (StepEngine, finalize_status, ilqr_step,
+                                 initial_state)
+
+
+def _vmap_last(fn, n_in: int):
+    """``vmap`` of a per-scenario function over the trailing axis of every
+    input and output, results in the inputs' float type.
+
+    Outputs are batched along axis 0 and then moved: a negative ``out_dims``
+    fails in ``torch.func.vmap`` for an output that does not depend on the
+    batched input (a constant Hessian block, say), axis 0 does not.
+
+    The cast: inside ``vmap`` a per-scenario ``x[i]`` is a 0-d tensor, and
+    ``torch.func`` promotes ``0-d float32 tensor <op> Python float`` to
+    float64 there (the scalar loses its weak type under the batching rule).
+    Such a function computes partly in float64 on float32 inputs; its
+    result is rounded back so that the working type holds downstream.
+    """
+
+    inner = vmap(fn, in_dims=(-1,) * n_in, out_dims=0)
+
+    def wrapped(*args):
+        dtype = args[0].dtype
+
+        def last(o):
+            return o.movedim(0, -1).to(dtype)
+
+        out = inner(*args)
+        return tuple(map(last, out)) if isinstance(out, tuple) else last(out)
+
+    return wrapped
+
+
+def _jacobians_trailing(dynamics):
+    """``(x [n, *L], u [m, *L]) -> (A [n, n, *L], B [n, m, *L])`` by
+    forward-mode AD of a dynamics that takes trailing batch axes: one
+    ``jvp`` per input direction, vmapped over the ``n + m`` basis tangents
+    (what ``jacfwd`` does per scenario, without a ``vmap`` over scenarios —
+    every ``x[i]`` keeps its lane axes, so nothing is promoted to float64,
+    see :func:`_vmap_last`)."""
+
+    def jac(x, u):
+        n, m = x.shape[0], u.shape[0]
+        eye = torch.eye(n + m, dtype=x.dtype, device=x.device)
+        lanes = (1,) * (x.ndim - 1)
+        tx = eye[:, :n].reshape((n + m, n) + lanes).expand((n + m,) + x.shape)
+        tu = eye[:, n:].reshape((n + m, m) + lanes).expand((n + m,) + u.shape)
+        J = vmap(lambda a, b: jvp(dynamics, (x, u), (a, b))[1])(tx, tu)
+        J = J.movedim(0, 1)                 # [n, n + m, *L]
+        return J[:, :n], J[:, n:]
+
+    return jac
+
+
+def _batched_callables(problem: Problem):
+    """``(dynamics, cost, final_cost)`` over a trailing lane axis:
+    ``x [n, B], u [m, B] -> [n, B] / [B]``."""
+
+    if problem.batch_trailing:
+        return problem.dynamics, problem.cost, problem.final_cost
+    bdyn = _vmap_last(problem.dynamics, 2)
+    bcost = _vmap_last(problem.cost, 2)
+    bfinal = _vmap_last(problem.final_cost, 1)
+    return bdyn, bcost, bfinal
+
+
+@highest_precision
+def rollout_bl(problem: Problem, x0, us):
+    """Open-loop rollout, batch-last: ``x0 [n, B]``, ``us [T, m, B]`` →
+    ``xs [T+1, n, B]``."""
+
+    bdyn, _, _ = _batched_callables(problem)
+    xs = [x0]
+    for t in range(us.shape[0]):
+        xs.append(bdyn(xs[-1], us[t]))
+    return torch.stack(xs, dim=0)
+
+
+def total_cost_bl(problem: Problem, xs, us, x_ref=None):
+    """Per-lane total cost ``[B]`` (same semantics as problem.total_cost)."""
+
+    steps, final = step_costs_bl(problem, xs, us, x_ref)
+    return torch.sum(steps, dim=0) + final
+
+
+def step_costs_bl(problem: Problem, xs, us, x_ref=None):
+    """Per-timestep running costs ``[T, B]`` and terminal cost ``[B]``
+    (batch-last analogue of ``problem.step_costs``)."""
+
+    _, bcost, bfinal = _batched_callables(problem)
+    xs_run = xs[:-1]
+    if x_ref is not None:
+        xs_run = xs_run - x_ref[: xs_run.shape[0]]
+    if problem.batch_trailing:
+        # Time is one more trailing axis: x [n, T, B], u [m, T, B].
+        steps = bcost(xs_run.movedim(0, 1), us.movedim(0, 1))
+    else:
+        steps = vmap(bcost)(xs_run, us)
+    return steps, bfinal(xs[-1])
+
+
+@highest_precision
+def derivatives_bl(problem: Problem, xs, us, chunk: int = 0):
+    """All local models, batch-last: returns
+    ``As [T,n,n,B], Bs [T,n,m,B], qx [T,n,B], ru [T,m,B], Qxx [T,n,n,B],
+    Pux [T,m,n,B], Ruu [T,m,m,B], qxN [n,B], QN [n,n,B]``, each contiguous.
+
+    ``chunk > 0`` evaluates the horizon in serial chunks of that many
+    timesteps instead of one whole-horizon ``vmap``: the jacfwd
+    intermediates of a heavy dynamics only stay live for one chunk, which
+    bounds peak memory at long T at the cost of a serial chunk loop.  ``T``
+    must be divisible by ``chunk``; results agree with the unchunked sweep
+    to rounding.
+    """
+
+    n = xs.shape[1]
+
+    if problem.dynamics_jacobians is not None:
+        jac_b = _vmap_last(problem.dynamics_jacobians, 2)
+    elif problem.batch_trailing:
+        jac_b = _jacobians_trailing(problem.dynamics)
+    else:
+        jac_b = _vmap_last(jacfwd(problem.dynamics, argnums=(0, 1)), 2)
+
+    if problem.cost_quadratization is not None:
+        def quad_one(x, u):
+            _q, qx, ru, Qxx, Pux, Ruu = problem.cost_quadratization(x, u)
+            return qx, ru, Qxx, Pux, Ruu
+    else:
+        def cost_z(z):
+            return problem.cost(z[:n], z[n:])
+
+        grad_z = grad(cost_z)
+        hess_z = jacfwd(grad_z)
+
+        def quad_one(x, u):
+            z = torch.cat([x, u])
+            gz = grad_z(z)
+            Hz = hess_z(z)
+            return gz[:n], gz[n:], Hz[:n, :n], Hz[n:, :n], Hz[n:, n:]
+
+    quad_b = _vmap_last(quad_one, 2)
+
+    def per_t(x_t, u_t):
+        A, B = jac_b(x_t, u_t)
+        return (A, B) + quad_b(x_t, u_t)
+
+    T = us.shape[0]
+    if chunk and chunk < T:
+        assert T % chunk == 0, (T, chunk)
+        parts = [vmap(per_t)(xs[c:c + chunk], us[c:c + chunk])
+                 for c in range(0, T, chunk)]
+        out = tuple(torch.cat(p, dim=0) for p in zip(*parts))
+    else:
+        out = vmap(per_t)(xs[:-1], us)
+
+    if problem.final_cost_quadratization is not None:
+        def final_one(x):
+            _q, qxN, QN = problem.final_cost_quadratization(x)
+            return qxN, QN
+
+        qxN, QN = _vmap_last(final_one, 1)(xs[-1])
+    else:
+        fgrad = grad(problem.final_cost)
+        qxN = _vmap_last(fgrad, 1)(xs[-1])
+        QN = _vmap_last(jacfwd(fgrad), 1)(xs[-1])
+    return tuple(o.contiguous() for o in out + (qxN, QN))
+
+
+def _gains_sqrt(H, reg, g, G):
+    L = sm.cholesky_bl(H, reg)
+    return -sm.cho_solve_bl(L, g), -sm.cho_solve_bl(L, G)
+
+
+@highest_precision
+def riccati_bl_scan(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                    symmetrize=True):
+    """Batch-last backward recursion as a loop over time in plain PyTorch
+    (the ``"scan"`` backend; ``sqrt`` then divide in the factorization, as
+    ``ilqr_tpu.batched.riccati_bl_scan``)."""
+
+    return riccati_loop_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                           symmetrize, _gains_sqrt)
+
+
+def riccati_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg, config):
+    if config.backward_backend == "pallas":
+        return riccati_scan_cuda_bl(
+            As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg=reg,
+            symmetrize=config.symmetrize)
+    if config.backward_backend == "scan":
+        return riccati_bl_scan(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                               symmetrize=config.symmetrize)
+    raise NotImplementedError(
+        f"backward_backend={config.backward_backend!r} is not ported; the "
+        "batch-last engine has 'pallas' (the fused CUDA kernel) and 'scan'")
+
+
+@highest_precision
+def closed_loop_rollout_bl(problem: Problem, xs, us, duffs, Ks, alpha):
+    """Per-lane closed-loop rollout: ``alpha [B]``."""
+
+    bdyn, _, _ = _batched_callables(problem)
+    T = us.shape[0]
+    x_new = xs[0]
+    xs_new, us_new = [], []
+    for t in range(T):
+        u_new = (us[t] + alpha[None, :] * duffs[t]
+                 + sm.mv_bl(Ks[t], x_new - xs[t]))
+        xs_new.append(x_new)
+        us_new.append(u_new)
+        x_new = bdyn(x_new, u_new)
+    xs_new.append(x_new)
+    return torch.stack(xs_new, dim=0), torch.stack(us_new, dim=0)
+
+
+@highest_precision
+def forward_pass_bl(problem: Problem, xs, us, duffs, Ks, prev_cost,
+                    x_ref=None, config: ILQRConfig = DEFAULT_CONFIG,
+                    active=None, dV1=None, dV2=None, alpha_init=None):
+    """Per-lane backtracking line search, batch-last.
+
+    Each lane accepts the first alpha in 1, 1/2, … with any cost decrease
+    (NaN rejected) and freezes; the loop runs until every lane accepted or
+    the ladder is exhausted.  ``dV1``/``dV2`` ([B]) feed the optional
+    expected-decrease acceptance (``config.ls_expected_decrease``).
+    Returns ``(xs [T+1,n,B], us [T,m,B], cost [B], accepted [B], alpha [B],
+    backtracks [B])``.
+    """
+
+    B = xs.shape[-1]
+    dtype, device = xs.dtype, xs.device
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=device)
+    use_expected = config.ls_expected_decrease and dV1 is not None
+
+    if config.exact_ls_delta:
+        steps_old, final_old = step_costs_bl(problem, xs, us, x_ref)
+
+    k = 0
+    # alpha_init: per-lane warm-started first rung
+    # (config.ls_alpha_warm_start; None = the reference's alpha0).
+    alpha = (torch.full((B,), config.alpha0, dtype=dtype, device=device)
+             if alpha_init is None else alpha_init.to(dtype))
+    # Inactive lanes start "accepted" so they neither roll out usefully nor
+    # keep the ladder spinning; the placeholder is masked off the returned
+    # flag so callers see accepted=False for skipped lanes.
+    accepted = ~active
+    bts = torch.zeros((B,), dtype=torch.int32, device=device)
+    xs_b, us_b = xs, us
+    cost_b = torch.full((B,), float("inf"), dtype=dtype, device=device)
+
+    # One host synchronization per test of the condition.
+    while k < config.max_backtracks and not bool(torch.all(accepted)):
+        xs_new, us_new = closed_loop_rollout_bl(problem, xs, us, duffs, Ks,
+                                                alpha)
+        if use_expected:
+            exp_impr = -(alpha * dV1 + alpha * alpha * dV2)
+            thresh = (config.ls_c * torch.clamp(exp_impr, min=0.0)).to(dtype)
+        else:
+            thresh = 0.0
+        if config.exact_ls_delta:
+            steps_new, final_new = step_costs_bl(problem, xs_new, us_new,
+                                                 x_ref)
+            cost = (torch.sum(steps_new, dim=0) + final_new).to(dtype)
+            delta = (torch.sum(steps_new - steps_old, dim=0)
+                     + (final_new - final_old)).to(dtype)
+            # Converging-step acceptance: a candidate bitwise identical to
+            # the iterate (the gain step underflowed the f32 update) is the
+            # step the convergence test fires on; delta for it is pure
+            # re-evaluation noise.
+            du_step_sq = torch.sum((us_new - us) ** 2, dim=(0, 1))
+            ok = torch.logical_or(
+                torch.logical_or(torch.isinf(prev_cost), -delta > thresh),
+                du_step_sq == 0)
+            # isfinite, not just ~isnan: an inf first-iteration cost must
+            # backtrack.
+            improve = torch.logical_and(ok, torch.isfinite(cost))
+            accept_now = torch.logical_and(~accepted, improve)
+        else:
+            cost = total_cost_bl(problem, xs_new, us_new, x_ref).to(dtype)
+            accept_now = torch.logical_and(~accepted,
+                                           (prev_cost - cost) > thresh)
+        take = accept_now[None, None, :]
+        xs_b = torch.where(take, xs_new, xs_b)
+        us_b = torch.where(take, us_new, us_b)
+        cost_b = torch.where(accept_now, cost, cost_b)
+        bts = torch.where(accepted, bts, k)
+        accepted = torch.logical_or(accepted, accept_now)
+        alpha = torch.where(accepted, alpha, alpha * config.alpha_factor)
+        k += 1
+
+    # Ladder-exhausted lanes report backtracks == max_backtracks (the number
+    # of rejected alphas).
+    bts = torch.where(accepted, bts, k)
+    return (xs_b, us_b, cost_b, torch.logical_and(accepted, active), alpha,
+            bts)
+
+
+def make_batch_last_engine(problem: Problem, x_ref_bl,
+                           config: ILQRConfig) -> StepEngine:
+    """The batch-last StepEngine: every lane-shaped value is ``[B]`` and
+    trajectories carry a trailing lane axis.
+
+    Raises ``NotImplementedError`` on the flags this engine does not
+    implement.  (The JAX fused engine ignores the first three silently and
+    runs its default recursion; the port does not copy that.)
+    """
+
+    unported = {
+        "backward_backend='associative'":
+            config.backward_backend == "associative",
+        "reg_in_value=True": config.reg_in_value,
+        "ddp=True": config.ddp,
+        "parallel_alpha_block > 0": config.parallel_alpha_block > 0,
+    }
+    for flag, is_set in unported.items():
+        if is_set:
+            raise NotImplementedError(
+                f"{flag} is not implemented by the batch-last engine of "
+                "ilqr_tpu_torch")
+
+    def backward(xs, us, reg):
+        models = derivatives_bl(problem, xs, us,
+                                chunk=config.derivative_chunk)
+        return riccati_bl(*models, reg=reg, config=config)
+
+    def forward(xs, us, duffs, Ks, prev_cost, active, dV1, dV2,
+                alpha_init=None):
+        return forward_pass_bl(problem, xs, us, duffs, Ks, prev_cost,
+                               x_ref_bl, config, active=active, dV1=dV1,
+                               dV2=dV2, alpha_init=alpha_init)
+
+    return StepEngine(
+        backward=backward,
+        forward=forward,
+        du_sq=lambda a, b: torch.sum((a - b) ** 2, dim=(0, 1)),
+        select=torch.where,
+        select_traj=lambda m, new, old: torch.where(m[None, None, :], new,
+                                                    old),
+    )
+
+
+@highest_precision
+def batched_solve_fused(problem: Problem, xs0, us0,
+                        x_ref: Optional[torch.Tensor] = None,
+                        config: ILQRConfig = DEFAULT_CONFIG,
+                        device=None) -> SolverResult:
+    """Solve a batch of scenarios with the fused batch-last engine.
+
+    Batch-FIRST interface (matching ``parallel.batch_solve``):
+    ``xs0 [B, T+1, n]``, ``us0 [B, T, m]`` → SolverResult with batch axis
+    first on every field.  Internally everything runs batch-last; the two
+    transposes at entry/exit are the only layout moves.  The iteration body
+    is the shared :func:`ilqr_tpu_torch.step.ilqr_step`.
+
+    Runs on ``device`` (default: the card; see
+    :func:`ilqr_tpu_torch.precision.resolve_device`).
+    """
+
+    device = resolve_device(device)
+    # To batch-last.
+    xs_bl = xs0.to(device).movedim(0, -1).contiguous()   # [T+1, n, B]
+    us_bl = us0.to(device).movedim(0, -1).contiguous()   # [T, m, B]
+    x_ref_bl = (None if x_ref is None
+                else x_ref.to(device).movedim(0, -1).contiguous())
+    B = xs_bl.shape[-1]
+    dtype = xs_bl.dtype
+
+    engine = make_batch_last_engine(problem, x_ref_bl, config)
+
+    # A global pass counter runs alongside the per-lane iteration counts (a
+    # finished lane stops counting but the loop keeps going for the
+    # stragglers).  One host synchronization per test of the condition.
+    state = initial_state(xs_bl, us_bl, config, lane_shape=(B,))
+    n_passes = 0
+    while (n_passes < config.max_iter
+           and bool(torch.any(state.status == int(Status.RUNNING)))):
+        state = ilqr_step(engine, config, state)[0]
+        n_passes += 1
+
+    status = finalize_status(state.status)
+    cost = torch.where(
+        torch.isinf(state.prev_cost),
+        total_cost_bl(problem, state.xs, state.us, x_ref_bl).to(dtype),
+        state.prev_cost)
+
+    return SolverResult(
+        xs=state.xs.movedim(-1, 0),
+        us=state.us.movedim(-1, 0),
+        cost=cost,
+        iterations=state.iteration,
+        status=status,
+        reg=state.reg,
+        alpha=state.alpha,
+        du_sq=state.du_sq,
+    )

@@ -1,0 +1,5 @@
+"""Model zoo: analytic test models."""
+
+from ilqr_tpu_torch.models.two_link import TwoLinkParams, make_two_link_problem
+
+__all__ = ["TwoLinkParams", "make_two_link_problem"]

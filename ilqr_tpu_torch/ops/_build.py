@@ -1,0 +1,121 @@
+"""Builds the package's CUDA sources at first use and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (``extern "C"`` launchers
+that take raw device pointers and a stream), so it compiles in seconds with
+``nvcc`` alone — no PyTorch headers, no ninja:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -shared -Xcompiler -fPIC -o build/ilqr_tpu_torch/lib<name>_<hash>.so \
+         csrc/<name>.cu
+
+The library's name carries a hash of the source and the flags, so an edited
+source is rebuilt and a stale library is never loaded.  The build directory
+is ``build/ilqr_tpu_torch/`` beside the package (git-ignored), or
+``$ILQR_TPU_TORCH_BUILD_DIR``.  A failed build raises with the compiler's
+output; nothing falls back.
+
+Nothing here runs when the module is imported: a machine with no ``nvcc``
+imports the package and never calls :func:`load`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("riccati",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("ILQR_TPU_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[2] / "build" / "ilqr_tpu_torch"
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root:
+            candidates.append(os.path.join(root, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME, $CUDA_PATH and "
+        "/usr/local/cuda): the CUDA kernels of ilqr_tpu_torch are built "
+        "from source at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256()
+    h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    """Where the compiler's output of the last build of ``name`` is kept
+    (``-Xptxas -v``: registers, spills and shared memory per kernel)."""
+
+    return library_path(name).with_suffix(".log")
+
+
+def _start_build(name: str):
+    """Start ``nvcc`` for one source; returns ``(process, tmp, out)`` or
+    ``None`` when the library is already built."""
+
+    out = library_path(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    output, _ = proc.communicate()
+    if proc.returncode != 0 or not tmp.exists():
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{output}")
+    log_path(name).write_text(output)
+    os.replace(tmp, out)  # atomic: a concurrent process loads a whole file
+
+
+def build(names: Iterable[str] = SOURCES) -> None:
+    """Build every named source that is not built yet, one ``nvcc`` per
+    source, all started together."""
+
+    started = [(n, _start_build(n)) for n in names if n not in _loaded]
+    for n, s in started:
+        _finish_build(n, s)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,203 @@
+"""The fused backward Riccati recursion: CUDA kernel, wrapper, plain version.
+
+Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (batch-last entry
+``riccati_scan_pallas_bl``).  The kernel is ``csrc/riccati.cu``, written by
+hand for ``sm_90a``, built at first use by :mod:`ilqr_tpu_torch.ops._build`
+and called through ctypes.  It has no gradient (the JAX kernel has none
+either), so there is no ``torch.autograd.Function`` around it.
+
+* :func:`riccati_scan_cuda_bl` — the wrapper.  On CUDA tensors it launches
+  the kernel or raises; on CPU tensors it takes the plain version.  It
+  never falls back from one to the other.
+* :func:`riccati_scan_plain_bl` — the same algebra step by step in PyTorch
+  (Python loop over ``t``, one ``rsqrt`` per Cholesky pivot as in the
+  kernel).  The CPU tests use it and the card check holds the kernel
+  against it.
+* :func:`riccati_loop_bl` — the loop both the plain version and
+  ``batched.riccati_bl_scan`` (``sqrt`` then divide, the ``"scan"``
+  backend) run; they differ only in the factorization they hand it.
+
+Shapes, all batch-last: ``As [T,n,n,B] Bs [T,n,m,B] qx [T,n,B] ru [T,m,B]
+Qxx [T,n,n,B] Pux [T,m,n,B] Ruu [T,m,m,B] qxN [n,B] QN [n,n,B]``, ``reg``
+scalar or ``[B]``; returns ``(duffs [T,m,B], Ks [T,m,n,B], dv1 [B],
+dv2 [B])`` with ``dv1 = sum_t duff.g`` and ``dv2 = 1/2 sum_t duff.H.duff``.
+
+Float32 agreement of kernel and plain version: both use ``rsqrt`` and the
+same formulas, but the compiler contracts the kernel's multiply-adds into
+fused multiply-adds (one rounding instead of two) and sums in another
+order, and the recursion carries that rounding through T steps.  The card
+check therefore states a float32 bound of 5e-5 relative to each output's
+largest magnitude; in float64 the two agree to rtol 1e-10.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ilqr_tpu_torch.ops import smallmat as sm
+
+# (n, m, dtype) -> exported launcher of csrc/riccati.cu.
+KERNELS: Dict[Tuple[int, int, torch.dtype], str] = {
+    (4, 2, torch.float32): "riccati_cuda_4x2_f32",
+    (4, 2, torch.float64): "riccati_cuda_4x2_f64",
+}
+
+# Launches per kernel name: one is added where the wrapper launches the
+# kernel, and nowhere else.
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS.values()}
+
+
+def launches() -> int:
+    """Total kernel launches made by :func:`riccati_scan_cuda_bl`."""
+
+    return sum(launch_counts.values())
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
+    """The launcher for ``(n, m, dtype)``; raises for a missing
+    instantiation."""
+
+    try:
+        return KERNELS[(n, m, dtype)]
+    except KeyError:
+        have = sorted({(k[0], k[1]) for k in KERNELS})
+        raise NotImplementedError(
+            f"the fused Riccati kernel is not instantiated for (n, m) = "
+            f"({n}, {m}) in {dtype}: csrc/riccati.cu holds {have} in float32 "
+            "and float64; use backward_backend='scan' or add the "
+            "instantiation") from None
+
+
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_void_p]
+
+
+def _launcher(name: str):
+    from ilqr_tpu_torch.ops import _build
+
+    fn = getattr(_build.load("riccati"), name)
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_shapes(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN):
+    if As.ndim != 4 or As.shape[1] != As.shape[2]:
+        raise ValueError(f"As must be [T, n, n, B], got {tuple(As.shape)}")
+    T, n, _, B = As.shape
+    if Bs.ndim != 4:
+        raise ValueError(f"Bs must be [T, n, m, B], got {tuple(Bs.shape)}")
+    m = Bs.shape[2]
+    want = {"Bs": (Bs, (T, n, m, B)), "qx": (qx, (T, n, B)),
+            "ru": (ru, (T, m, B)), "Qxx": (Qxx, (T, n, n, B)),
+            "Pux": (Pux, (T, m, n, B)), "Ruu": (Ruu, (T, m, m, B)),
+            "qxN": (qxN, (n, B)), "QN": (QN, (n, n, B))}
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name} must be {shape} (batch-last), got {tuple(x.shape)}")
+    return T, n, m, B
+
+
+def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                         symmetrize: bool = True):
+    """The whole backward recursion of a batch in one kernel launch.
+
+    CUDA tensors: launches ``csrc/riccati.cu`` on the current stream (no
+    synchronize) or raises — on a missing ``(n, m)`` instantiation
+    (``NotImplementedError``), on a wrong device, dtype, shape or a
+    non-contiguous input, on a failed build, on a refused launch.  CPU
+    tensors: :func:`riccati_scan_plain_bl`.
+    """
+
+    arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
+    T, n, m, B = _check_shapes(*arrays)
+    name = kernel_name(n, m, As.dtype)
+    if any(x.device != As.device or x.dtype != As.dtype for x in arrays):
+        raise ValueError("all inputs must share one device and one dtype")
+
+    if As.device.type == "cpu":
+        return riccati_scan_plain_bl(*arrays, reg, symmetrize=symmetrize)
+    if As.device.type != "cuda":
+        raise ValueError(f"unsupported device {As.device}")
+    for x in arrays:
+        if not x.is_contiguous():
+            raise ValueError("inputs must be contiguous batch-last tensors")
+
+    reg_b = torch.as_tensor(reg, dtype=As.dtype, device=As.device)
+    reg_b = reg_b.expand(B).contiguous()
+    duffs = torch.empty((T, m, B), dtype=As.dtype, device=As.device)
+    Ks = torch.empty((T, m, n, B), dtype=As.dtype, device=As.device)
+    dv1 = torch.empty((B,), dtype=As.dtype, device=As.device)
+    dv2 = torch.empty((B,), dtype=As.dtype, device=As.device)
+
+    fn = _launcher(name)
+    with torch.cuda.device(As.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(x.data_ptr() for x in arrays), reg_b.data_ptr(),
+                 duffs.data_ptr(), Ks.data_ptr(), dv1.data_ptr(),
+                 dv2.data_ptr(), T, B, int(bool(symmetrize)), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    launch_counts[name] += 1
+    return duffs, Ks, dv1, dv2
+
+
+def riccati_loop_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                    symmetrize: bool, gains: Callable):
+    """The backward recursion as a Python loop over ``t = T-1 … 0``.
+
+    ``gains(H, reg, g, G) -> (duff, K)`` solves ``(H + reg I) x = -g`` and
+    ``= -G``; the value update uses the raw ``H`` (the reference's mixed
+    regularization, src/backward_pass.jl:186,214).
+    """
+
+    T = As.shape[0]
+    s_vec, S = qxN, QN
+    duffs, Ks = [None] * T, [None] * T
+    dv1 = torch.zeros_like(qxN[0])
+    dv2 = torch.zeros_like(qxN[0])
+    for t in reversed(range(T)):
+        A, B = As[t], Bs[t]
+        BT_S = sm.mtm_bl(B, S)
+        g = ru[t] + sm.mtv_bl(B, s_vec)
+        G = Pux[t] + sm.mm_bl(BT_S, A)
+        H = Ruu[t] + sm.mm_bl(BT_S, B)
+
+        duff, K = gains(H, reg, g, G)
+
+        H_duff = sm.mv_bl(H, duff)
+        s_vec = (qx[t] + sm.mtv_bl(A, s_vec) + sm.mtv_bl(K, H_duff)
+                 + sm.mtv_bl(K, g) + sm.mtv_bl(G, duff))
+        KtG = sm.mtm_bl(K, G)
+        S = (Qxx[t] + sm.mtm_bl(A, sm.mm_bl(S, A))
+             + sm.mtm_bl(K, sm.mm_bl(H, K))
+             + KtG + sm.transpose_bl(KtG))
+        if symmetrize:
+            S = 0.5 * (S + sm.transpose_bl(S))
+        duffs[t], Ks[t] = duff, K
+        dv1 = dv1 + sm.vv_bl(duff, g)
+        dv2 = dv2 + 0.5 * sm.vv_bl(duff, H_duff)
+    return torch.stack(duffs, dim=0), torch.stack(Ks, dim=0), dv1, dv2
+
+
+def _gains_rsqrt(H, reg, g, G):
+    L, inv_diag = sm.cholesky_rsqrt_bl(H, reg)
+    return (-sm.cho_solve_bl(L, g, inv_diag), -sm.cho_solve_bl(L, G, inv_diag))
+
+
+def riccati_scan_plain_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                          symmetrize: bool = True):
+    """The kernel's plain PyTorch version: same algebra, any device, any
+    ``(n, m)``, one ``rsqrt`` per pivot and division-free solves."""
+
+    return riccati_loop_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                           symmetrize, _gains_rsqrt)
