@@ -13,7 +13,8 @@ Phases, one JSON line each:
 1. ``device``   the card as ``nvidia-smi`` names it, torch and CUDA versions.
 2. ``build``    ``nvcc`` builds ``ilqr_tpu_torch/ops/csrc/*.cu`` from the
                 checkout (seconds), registers per kernel from ``ptxas``.
-3. ``kernels``  the fused Riccati kernel against its plain PyTorch version on
+3. ``kernels``  the one-thread-a-lane Riccati kernel, ``(n, m) = (4, 2)``,
+                against its plain PyTorch version on
                 the card, on local models from ``derivatives_bl`` at a rolled
                 out iterate: float64 at B=256, T=24 (rtol 1e-10), float32 and
                 float64 at the main path's B=4096, T=100, float32 at a ragged
@@ -23,14 +24,51 @@ Phases, one JSON line each:
 4. ``parity``   a small float64 solve on the card (kernel) against the same
                 solve on the CPU (plain version): same status and
                 iterations, ``us`` to rtol 1e-8.
-5. ``solve``    the main path: ``make_batch_solver(problem, config,
+5. ``solve``    the first main path: ``make_batch_solver(problem, config,
                 engine="fused")`` on 4096 perturbed 2-link swing-ups, T=100,
                 float32, ``backward_backend="pallas"`` (the CUDA kernel).
                 The kernel's launch count is set to 0 before and read after:
                 it must equal the passes of the solve.  A short float64
                 solve drives the float64 instantiation the same way.  Then
                 the same float32 inputs through ``backward_backend="scan"``
-                for comparison, and one more solve timed phase by phase.
+                for comparison, one more solve timed phase by phase, and
+                the same solve through ``make_chunked_batch_solver`` with
+                ``compact_sizes`` that fire: the straggler compaction
+                (``index_select`` and the indexed write-back on the card)
+                must have happened and must change no lane's result.
+6. ``rbd_kernels``  the lane-spread kernel at ``(n, m) = (16, 8)`` and
+                ``(24, 12)`` against the plain version, on local models of
+                the floating-base arms: float64 at B=64, T=24 (rtol 1e-10,
+                ``symmetrize`` on and off, scalar and per-lane ``reg``) and
+                at the ragged B=257 and B=67; float32 and float64 at the
+                second main path's B=256, T=1000 (and B=64, T=50 for the
+                6-DoF arm), float32 also against a float64 run of the same
+                inputs; then the times, and one whole pass at that depth
+                from the same iterate: ``derivatives_bl``, the kernel, and a
+                ``forward_pass_bl`` whose ladder is capped at three rungs.
+7. ``rbd_solve``    the second main path, what ``bench.py --config rbd`` runs
+                in the JAX package: the floating-base 2-DoF arm (n=16, m=8),
+                B=256, float32, Tassa regularization, through
+                ``make_chunked_batch_solver`` (``iter_chunk=10``,
+                ``compact_sizes=(128,)``) with the ``(16, 8)`` kernel.  The
+                solve runs at the reference's T=1000 if five passes of the
+                times measured there fit the budget, else at T=100 with
+                ``max_iter=15``, and stops at a chunk boundary once half the
+                budget is spent.  Counts are set to 0 before and read after;
+                then the same passes with ``backward_backend="scan"``.  The
+                two backends are held to each other after ONE pass from the
+                same state (1e-4 of max|us|, same alpha on every lane); after
+                the cut solve, where ten passes have amplified the rounding,
+                the median lane and the cost are held and the worst lane is
+                reported.
+8. ``rbd_parity``   a float64 RBD solve on the card (kernel) against the CPU
+                (plain version): B=8, T=24, a few passes.
+9. ``rbd_6dof``     the 6-DoF arm on a floating base (n=24, m=12), B=64, T=50,
+                float32, ``make_batch_solver(engine="fused")`` with the
+                ``(24, 12)`` kernel (``max_iter=15``, fewer if the first
+                pass says that would not fit the budget), then a short
+                float64 solve and the scan backend, held as in ``rbd_solve``
+                (one pass tightly, the cut solve by median lane and cost).
 
 Then one line with every kernel's numbers, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -38,6 +76,7 @@ Then one line with every kernel's numbers, and the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -71,6 +110,8 @@ F32_REL_BOUND = 5e-5
 # room for a line-search decision that rounding tips the other way.
 F32_SOLVE_REL_BOUND = 1e-3
 SOLVE_BUDGET_S = 150.0
+# Lane counts the chunked 2-link solve may compact to (of B=4096).
+COMPACT_SIZES = (3072, 2048, 512, 128)
 
 
 def emit(**kw):
@@ -118,7 +159,7 @@ def local_models(problem, B, T, dtype, seed, device):
     return derivatives_bl(problem, xs, us)
 
 
-def riccati_bound_ms(T, B, dtype):
+def riccati_bound_ms(T, B, dtype, N=N, M=M):
     """Least time for one launch: each input read once, each output written
     once, over the memory rate; the recursion's flops over the peak rate."""
 
@@ -261,7 +302,8 @@ def time_one_pass(problem, config, x0s, us0):
     us = us0.movedim(0, -1).contiguous()
     xs = batched.rollout_bl(problem, x0s.T.contiguous(), us)
     state = initial_state(xs, us, config, lane_shape=(B,))
-    models, t_d = timed(lambda: batched.derivatives_bl(problem, xs, us))
+    models, t_d = timed(lambda: batched.derivatives_bl(
+        problem, xs, us, chunk=config.derivative_chunk))
     (duffs, Ks, dv1, dv2), t_r = timed(
         lambda: batched.riccati_bl(*models, reg=state.reg, config=config))
     _, t_f = timed(lambda: batched.forward_pass_bl(
@@ -270,8 +312,41 @@ def time_one_pass(problem, config, x0s, us0):
     return dict(derivatives_s=t_d, riccati_s=t_r, forward_s=t_f)
 
 
-def phase_solve(problem, config, device):
+@contextlib.contextmanager
+def phase_clock():
+    """Seconds spent in ``derivatives_bl``, ``riccati_bl`` and
+    ``forward_pass_bl`` while the block runs (a synchronize around every
+    call)."""
+
     from ilqr_tpu_torch import batched
+
+    spent = {"derivatives_bl": 0.0, "riccati_bl": 0.0, "forward_pass_bl": 0.0}
+    originals = {k: getattr(batched, k) for k in spent}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    try:
+        for k in spent:
+            setattr(batched, k, wrap(k))
+        yield spent
+    finally:
+        for k, fn in originals.items():
+            setattr(batched, k, fn)
+
+
+def phase_solve(problem, config, device):
+    from ilqr_tpu_torch.batched import make_chunked_batch_solver, rollout_bl
     from ilqr_tpu_torch.config import Status
     from ilqr_tpu_torch.ops import cuda_riccati
     from ilqr_tpu_torch.parallel.batching import (batch_metrics,
@@ -338,30 +413,33 @@ def phase_solve(problem, config, device):
     assert us_rel <= F32_SOLVE_REL_BOUND, us_rel
 
     # Once more with each phase timed (a synchronize around every call).
-    spent = {"derivatives_bl": 0.0, "riccati_bl": 0.0, "forward_pass_bl": 0.0}
-    originals = {k: getattr(batched, k) for k in spent}
-
-    def wrap(name):
-        fn = originals[name]
-
-        def timed(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t0
-            return out
-
-        return timed
-
-    try:
-        for k in spent:
-            setattr(batched, k, wrap(k))
+    with phase_clock() as spent:
         res2, timed_s = run(cfg, x0s, us0)
-    finally:
-        for k, fn in originals.items():
-            setattr(batched, k, fn)
     assert torch.equal(res2.status, res.status)
+
+    # The same solve through the chunked solver, with straggler compaction
+    # on the card: lanes finish at different passes, so after a chunk the
+    # running ones fit a listed size and are gathered into a smaller batch.
+    chunks = []
+    chunked_fn = make_chunked_batch_solver(
+        problem, cfg, iter_chunk=2, compact_sizes=COMPACT_SIZES,
+        device=device, on_chunk=lambda p, r: chunks.append((p, r)))
+    xs0 = rollout_bl(problem, x0s.T.contiguous(),
+                     us0.movedim(0, -1).contiguous()).movedim(-1, 0)
+    res_c = chunked_fn(xs0.contiguous(), us0)
+    torch.cuda.synchronize()
+    compactions = [r for _, r in chunks[:-1] if 0 < r <= COMPACT_SIZES[0]]
+    assert compactions, chunks
+    # The step is per-lane, so compaction changes no lane's arithmetic but
+    # the order of the sums over time, which PyTorch picks from the batch
+    # width: held like the scan backend, bit-equality reported.
+    same_c = res_c.iterations == res.iterations
+    frac_same_c = float(same_c.float().mean())
+    assert frac_same_c >= 0.98, frac_same_c
+    assert torch.equal(res_c.status[same_c], res.status[same_c])
+    us_rel_c = float((res_c.us[same_c] - res.us[same_c]).abs().max()
+                     / res.us.abs().max())
+    assert us_rel_c <= F32_SOLVE_REL_BOUND, us_rel_c
 
     metrics = {k: float(v) for k, v in batch_metrics(res).items()}
     emit(phase="solve", B=B, T=T, n=N, m=M, dtype="float32",
@@ -377,9 +455,516 @@ def phase_solve(problem, config, device):
          f64={"passes": passes64, "launches": counts64, "solve_s": solve64_s},
          scan={"solve_s": scan_s, "lanes_same_iterations": frac_same,
                "us_rel_diff_same_lanes": us_rel,
-               "bound": F32_SOLVE_REL_BOUND})
+               "bound": F32_SOLVE_REL_BOUND},
+         chunked={"iter_chunk": 2, "compact_sizes": list(COMPACT_SIZES),
+                  "chunks": chunks, "compaction_fired": True,
+                  "running_lanes_when_compacted": compactions,
+                  "lanes_same_iterations": frac_same_c,
+                  "us_rel_diff_same_lanes": us_rel_c,
+                  "bound": F32_SOLVE_REL_BOUND,
+                  "bit_equal_to_fused_solve": all(
+                      torch.equal(getattr(res_c, f), getattr(res, f))
+                      for f in ("status", "iterations", "us", "cost"))})
     return {"riccati_cuda_4x2_f32": counts["riccati_cuda_4x2_f32"],
             "riccati_cuda_4x2_f64": counts64["riccati_cuda_4x2_f64"]}
+
+
+# ---------------------------------------------------------------------------
+# The second main path: the floating-base arms of the rigid-body layer.
+# ---------------------------------------------------------------------------
+
+WIDE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_wide.cu"
+RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=15, max_iter=100)
+SIX = dict(B=64, T=50, max_iter=15)
+# Seconds the RBD solve and its scan twin may take together: decides T, and
+# stops the solve at a chunk boundary (10 passes) once half of it is spent.
+RBD_BUDGET_S = 200.0
+# Rungs of the line-search ladder the timed forward pass at T=1000 may climb
+# (a rung is one rollout of the whole batch, half a minute there).
+FULL_DEPTH_RUNGS = 3
+# The same for the 6-DoF solve, its float64 run and its scan twin: caps
+# max_iter from the time of the first pass.
+SIX_BUDGET_S = 120.0
+
+# Float32 bound of the lane-spread kernel against the plain version,
+# relative to each output's largest magnitude.  The reasons are those of
+# F32_REL_BOUND (FMA contraction, another order of the sums, and here K'(HK
+# + G) where the plain version adds K'HK and K'G), but the recursion carries
+# the rounding through T=1000 steps of 16x16 products instead of T=100 of
+# 4x4.  Measured on an H100: 6.5e-6 at (16, 8), B=256, T=1000 and 4.1e-6 at
+# (24, 12), B=64, T=50; the bound leaves a factor of 15.  Both versions are
+# also held against a float64 run of the same
+# inputs: the kernel may be at most KERNEL_VS_PLAIN_SLACK times as far from
+# it as the plain version, so the bound cannot hide a kernel that is worse.
+F32_REL_BOUND_RBD = 1e-4
+# The same in float64 at those depths, where entries that are rounding noise
+# beside the largest no longer meet an elementwise rtol (the small sizes are
+# held to the elementwise rtol 1e-10 / atol 1e-12 of the JAX package's kernel
+# test).  Measured: 9.5e-15.
+F64_REL_BOUND_RBD = 1e-9
+KERNEL_VS_PLAIN_SLACK = 3.0
+# Float32 `us` of an RBD solve, kernel backend against scan backend, lanes
+# with the same iteration count, relative to max|us|.
+# After ONE pass from the same state the two differ by the rounding of one
+# recursion (reciprocals, order of the sums) carried through one closed-loop
+# rollout: the worst lane is held to F32_FIRST_PASS_REL_BOUND_RBD, and every
+# lane must have accepted the same alpha.
+# After a solve cut mid-descent (5 to 15 passes of a problem that needs
+# more) each pass has amplified the last one's difference, and the worst
+# lane ends the cut on a visibly different iterate.  Measured on an H100, all
+# lanes on the same count: 2-DoF arm, B=256, T=100, 10 passes: worst lane
+# 0.079, median lane 9.1e-5, worst cost 2.9e-2; 6-DoF arm, B=64, T=50: worst
+# lane 9.4e-7 after 5 passes, 1.4e-3 in a run whose cap was higher (its
+# count was not printed), 1.6e-6 after 9 (converged).  There the worst lane is reported, and the MEDIAN lane
+# and the worst lane's relative cost difference are held.
+F32_FIRST_PASS_REL_BOUND_RBD = 1e-4
+F32_SOLVE_MEDIAN_BOUND_RBD = 2e-3
+F32_SOLVE_COST_BOUND_RBD = 5e-2
+# Float64 `us`, card (kernel, cuBLAS products) against CPU (plain version)
+# after a few passes, relative to max|us|.  Measured: 1.3e-15.
+F64_PARITY_REL_BOUND_RBD = 1e-9
+
+
+def rbd_case(six_dof):
+    """``(problem, nominal state, per-component noise)`` of the reference's
+    2-DoF arm (``bench.py --config rbd``: pose-only noise 0.05, attitude
+    0.4 of it) or the 6-DoF arm (``scripts/bench_6dof.py``: 0.02 on every
+    component)."""
+
+    from ilqr_tpu_torch.models.rbd import (SIX_DOF_ARM_URDF,
+                                           make_rbd_arm_problem)
+
+    if six_dof:
+        problem = make_rbd_arm_problem(
+            target_pose=[0.0, 0.0, 0.0, 1.0, 1.0, 1.0] + [0.3] * 6,
+            urdf_path=SIX_DOF_ARM_URDF)
+        return problem, [0.0, 0.0, 1.0] + [0.0] * 21, [0.02] * 24
+    problem = make_rbd_arm_problem()
+    noise = 0.05
+    return (problem, [0.0, 0.0, 1.0, 0.5, 0.75, 1.0, 0.0, 0.0] + [0.0] * 8,
+            [0.4 * noise] * 3 + [noise] * 5 + [0.0] * 8)
+
+
+def rbd_inputs(case, B, T, dtype, seed, device):
+    problem, nominal, scale = case
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x0s = (torch.tensor(nominal, dtype=torch.float64)
+           + torch.tensor(scale, dtype=torch.float64)
+           * torch.randn((B, problem.state_dim), generator=gen,
+                         dtype=torch.float64))
+    return x0s.to(dtype).to(device), torch.zeros(
+        (B, T, problem.control_dim), dtype=dtype, device=device)
+
+
+def rbd_local_models(case, B, T, dtype, seed, device, timings=None):
+    """Local models of the RBD problem at an iterate rolled out under small
+    random controls: the conditioning of ``H + reg I`` a solve sees.  With
+    ``timings`` (a dict) the seconds of the rollout — one rung of the
+    line-search ladder — and of ``derivatives_bl`` are written into it.
+    Returns ``(models, xs, us)``."""
+
+    from ilqr_tpu_torch.batched import derivatives_bl, rollout_bl
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    problem = case[0]
+    x0s, _ = rbd_inputs(case, B, T, dtype, seed, device)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    us = (0.1 * torch.randn((T, problem.control_dim, B), generator=gen,
+                            dtype=torch.float64)).to(dtype).to(device)
+    xs, rollout_s = timed(lambda: rollout_bl(problem, x0s.T.contiguous(), us))
+    models, derivatives_s = timed(lambda: derivatives_bl(
+        problem, xs, us, chunk=100 if T >= 500 else 0))
+    if timings is not None:
+        timings.update(rollout_rung_s=rollout_s, derivatives_s=derivatives_s)
+    return models, xs, us
+
+
+def rbd_config(max_iter, T, backend="pallas"):
+    """``bench.py --config rbd``'s solver flags (Tassa regularization)."""
+
+    from ilqr_tpu_torch.config import ILQRConfig
+
+    return ILQRConfig(max_iter=max_iter, tol=1e-5, tol_grad=1e-10,
+                      tol_grad_rel=1e-6, adaptive_reg=True, reg=1.0,
+                      reg_min=1e-3, reg_scale=10.0, reg_backtrack_trigger=1,
+                      backward_backend=backend,
+                      derivative_chunk=100 if T >= 500 else 0)
+
+
+def time_forward_pass(problem, xs, us, gains, config):
+    """Seconds of one ``forward_pass_bl`` from the iterate ``(xs, us)`` with
+    the kernel's gains, the ladder capped at FULL_DEPTH_RUNGS rungs; the rungs
+    it climbed and the lanes that accepted a step within them."""
+
+    from ilqr_tpu_torch import batched
+
+    duffs, Ks, dv1, dv2 = gains
+    cost = batched.total_cost_bl(problem, xs, us)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = batched.forward_pass_bl(
+        problem, xs, us, duffs, Ks, cost, None,
+        config.replace(max_backtracks=FULL_DEPTH_RUNGS), dV1=dv1, dV2=dv2)
+    torch.cuda.synchronize()
+    accepted, bts = out[3], out[5]
+    return dict(forward_pass_s=time.perf_counter() - t0,
+                forward_pass_rungs=min(int(bts.max()) + 1, FULL_DEPTH_RUNGS),
+                forward_pass_rung_cap=FULL_DEPTH_RUNGS,
+                forward_pass_lanes_accepted=int(accepted.sum()))
+
+
+def phase_rbd_kernels(cases, device):
+    from ilqr_tpu_torch.ops.cuda_riccati import (kernel_name,
+                                                 riccati_scan_cuda_bl,
+                                                 riccati_scan_plain_bl)
+
+    rows, small, one_pass = {}, {}, {}
+    for tag, case, full in (("16x8", cases[False], RBD),
+                            ("24x12", cases[True], SIX)):
+        n, m = case[0].state_dim, case[0].control_dim
+
+        # float64, small, the four flag combinations; then the ragged sizes.
+        errs = []
+        for B in (64, 257, 67):
+            models = rbd_local_models(case, B, 24, torch.float64, 50 + B,
+                                      device)[0]
+            reg_lane = torch.logspace(-3, 0, B, dtype=torch.float64,
+                                      device=device)
+            combos = ([(r, s) for r in (1.0, reg_lane) for s in (True, False)]
+                      if B == 64 else [(reg_lane, True)])
+            errs.append(max(check_kernel(models, r, s)[0]
+                            for r, s in combos))
+        small[tag] = dict(zip(("B64_T24", "B257_T24", "B67_T24"), errs))
+
+        # The main path's shapes: error, time, bound, both instantiations.
+        # The plain version takes seconds here (thousands of launches a
+        # step), so it runs once per type and that call is the one timed.
+        B, T = full["B"], full["T"]
+        one_pass[tag] = dict(B=B, T=T)
+        m32, xs, us = rbd_local_models(case, B, T, torch.float32, 60, device,
+                                       timings=one_pass[tag])
+        m64 = tuple(x.double() for x in m32)
+        plain, plain_ms = {}, {}
+        for dtype, models in ((torch.float32, m32), (torch.float64, m64)):
+            reg = torch.full((B,), 1.0, dtype=dtype, device=device)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            plain[dtype] = riccati_scan_plain_bl(*models, reg, symmetrize=True)
+            b.record()
+            torch.cuda.synchronize()
+            plain_ms[dtype] = a.elapsed_time(b)
+        truth = plain[torch.float64]
+        for dtype, models in ((torch.float32, m32), (torch.float64, m64)):
+            reg = torch.full((B,), 1.0, dtype=dtype, device=device)
+            kern = riccati_scan_cuda_bl(*models, reg, symmetrize=True)
+            torch.cuda.synchronize()
+            bound = (F32_REL_BOUND_RBD if dtype == torch.float32
+                     else F64_REL_BOUND_RBD)
+            max_abs, max_rel = 0.0, 0.0
+            for name, k, p in zip(("duffs", "Ks", "dv1", "dv2"), kern,
+                                  plain[dtype]):
+                assert bool(torch.isfinite(k).all()), f"{name}: not finite"
+                r = rel_err(k, p)
+                assert r <= bound, (tag, str(dtype), name, r, bound)
+                max_abs = max(max_abs, float((k - p).abs().max()))
+                max_rel = max(max_rel, r)
+            vs_truth = {}
+            if dtype == torch.float32:
+                k64 = max(rel_err(k.double(), t) for k, t in zip(kern, truth))
+                p64 = max(rel_err(p.double(), t)
+                          for p, t in zip(plain[dtype], truth))
+                assert k64 <= max(KERNEL_VS_PLAIN_SLACK * p64, 1e-6), (k64,
+                                                                       p64)
+                vs_truth = {"kernel_vs_f64": k64, "plain_vs_f64": p64}
+            ms = sync_time(lambda: riccati_scan_cuda_bl(*models, reg), 30)
+            bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
+            rows[kernel_name(n, m, dtype)] = dict(
+                B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+                plain_ms=plain_ms[dtype], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, **vs_truth)
+            if dtype == torch.float32:
+                one_pass[tag]["riccati_s"] = ms / 1e3
+                if full is RBD:
+                    one_pass[tag].update(time_forward_pass(
+                        case[0], xs, us, kern, rbd_config(1, T)))
+        del plain, truth, kern
+        del m32, m64, xs, us
+    emit(phase="rbd_kernels", kernels=sorted(rows), f64_rtol=1e-10,
+         f64_rel_bound_at_main_path_shapes=F64_REL_BOUND_RBD,
+         f64_max_abs_err=small, f32_rel_bound=F32_REL_BOUND_RBD,
+         kernel_vs_plain_slack=KERNEL_VS_PLAIN_SLACK,
+         at_main_path_shapes=rows, one_pass_float32_s=one_pass)
+    return rows, one_pass["16x8"]
+
+
+def check_rbd_result(res, cost0, B, T, n, m, dtype):
+    """Shapes, types, a valid final status on every lane, and a finite cost
+    no higher than the initial one.  Returns lanes by final status."""
+
+    from ilqr_tpu_torch.config import Status
+
+    assert res.us.shape == (B, T, m) and res.xs.shape == (B, T + 1, n)
+    assert res.us.dtype == dtype and res.status.dtype == torch.int32
+    final = (int(Status.CONVERGED), int(Status.MAX_ITER),
+             int(Status.LINESEARCH_FAILED))
+    by_status = {Status(c).name: int((res.status == c).sum()) for c in final}
+    assert sum(by_status.values()) == B, res.status.unique().tolist()
+    for f in (res.xs, res.us, res.cost):
+        assert bool(torch.isfinite(f).all())
+    slack = 1e-5 if dtype == torch.float32 else 1e-12
+    assert bool((res.cost <= cost0 * (1.0 + slack)).all()), (
+        float((res.cost / cost0).max()))
+    return by_status
+
+
+def compare_backends(res, ref, bound):
+    """``us`` of two solves on the lanes that ran the same number of
+    iterations, relative to max|us|: the worst lane is held to ``bound``
+    (reported only where ``bound`` is None), the median lane and the worst
+    lane's cost to their own bounds."""
+
+    same_it = res.iterations == ref.iterations
+    assert bool(same_it.any())
+    per_lane = ((res.us - ref.us).abs().amax(dim=(1, 2))
+                / ref.us.abs().max())[same_it]
+    cost_rel = ((res.cost - ref.cost).abs() / ref.cost.abs())[same_it]
+    out = {"lanes_same_iterations": float(same_it.float().mean()),
+           "us_rel_diff_same_lanes": float(per_lane.max()),
+           "us_rel_diff_median_lane": float(per_lane.median()),
+           "cost_rel_diff_worst_lane": float(cost_rel.max()),
+           "cost_rel_diff_median_lane": float(cost_rel.median()),
+           "bound": bound, "median_bound": F32_SOLVE_MEDIAN_BOUND_RBD,
+           "cost_bound": F32_SOLVE_COST_BOUND_RBD}
+    assert bound is None or out["us_rel_diff_same_lanes"] <= bound, out
+    assert out["us_rel_diff_median_lane"] <= F32_SOLVE_MEDIAN_BOUND_RBD, out
+    assert out["cost_rel_diff_worst_lane"] <= F32_SOLVE_COST_BOUND_RBD, out
+    return out
+
+
+def compare_first_pass(one_k, one_s):
+    """One pass from the same state through the kernel and through the scan
+    backend: rounding has not been amplified yet, so every lane must have
+    accepted the same alpha and the worst lane's ``us`` is held tightly."""
+
+    assert torch.equal(one_k.iterations, one_s.iterations)
+    assert torch.equal(one_k.alpha, one_s.alpha), (one_k.alpha, one_s.alpha)
+    return compare_backends(one_k, one_s, F32_FIRST_PASS_REL_BOUND_RBD)
+
+
+def phase_rbd_solve(case, device, one_pass_full):
+    """``one_pass_full``: seconds of ``derivatives_bl``, the Riccati kernel
+    and ``forward_pass_bl`` at the reference's T=1000, from the
+    ``rbd_kernels`` phase."""
+
+    from ilqr_tpu_torch import batched
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    problem = case[0]
+    n, m, B = problem.state_dim, problem.control_dim, RBD["B"]
+    name = cuda_riccati.kernel_name(n, m, torch.float32)
+
+    # A pass is the derivative sweep, the recursion and the forward pass;
+    # five of them and their scan twins must fit the budget.
+    T, max_iter = RBD["T_cut"], RBD["max_iter_cut"]
+    pass_s = (one_pass_full["derivatives_s"] + one_pass_full["riccati_s"]
+              + one_pass_full["forward_pass_s"])
+    if 2 * 5 * pass_s <= RBD_BUDGET_S:
+        T = RBD["T"]
+        max_iter = min(RBD["max_iter"], int(RBD_BUDGET_S / (2 * pass_s)))
+    x0s, us0 = rbd_inputs(case, B, T, torch.float32, 0, device)
+    xs_bl = batched.rollout_bl(problem, x0s.T.contiguous(),
+                               us0.movedim(0, -1).contiguous())
+    cost0 = batched.total_cost_bl(problem, xs_bl,
+                                  us0.movedim(0, -1).contiguous())
+    xs0 = xs_bl.movedim(-1, 0).contiguous()
+
+    def run(backend, passes_cap, budget_s=None):
+        chunks = []
+        t0 = time.perf_counter()
+
+        def on_chunk(passes, running):
+            chunks.append((passes, running))
+            return (budget_s is not None
+                    and time.perf_counter() - t0 > budget_s)
+
+        solve_fn = batched.make_chunked_batch_solver(
+            problem, rbd_config(passes_cap, T, backend), iter_chunk=10,
+            compact_sizes=(128,), device=device, on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_fn(xs0, us0)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, chunks
+
+    first_pass = compare_first_pass(run("pallas", 1)[0], run("scan", 1)[0])
+
+    # The main path: counts set to 0 just before, read just after.  It stops
+    # at a chunk boundary once half the budget is spent.
+    cuda_riccati.reset_launch_counts()
+    with phase_clock() as spent:
+        res, solve_s, chunks = run("pallas", max_iter, RBD_BUDGET_S / 2)
+    counts = dict(cuda_riccati.launch_counts)
+    passes = chunks[-1][0]
+    by_status = check_rbd_result(res, cost0, B, T, n, m, torch.float32)
+    assert counts[name] == passes >= 1, (counts, passes)
+    assert sum(counts.values()) == passes, counts
+    compacted = any(0 < r <= 128 for _, r in chunks[:-1])
+
+    emit(phase="rbd_solve", B=B, T=T, n=n, m=m, dtype="float32",
+         max_iter=max_iter, one_pass_at_T1000_s=one_pass_full,
+         passes=passes,
+         launches=counts, solve_s=solve_s, chunks=chunks,
+         compaction_fired=compacted, lanes_by_status=by_status,
+         mean_iterations=float(res.iterations.float().mean()),
+         mean_cost_ratio=float((res.cost / cost0).mean()),
+         per_pass_s={k: v / passes for k, v in spent.items()},
+         per_pass_other_s=(solve_s - sum(spent.values())) / passes)
+
+    # The same passes through the scan backend.
+    cuda_riccati.reset_launch_counts()
+    ref, scan_s, _ = run("scan", passes)
+    assert cuda_riccati.launches() == 0
+    check_rbd_result(ref, cost0, B, T, n, m, torch.float32)
+    emit(phase="rbd_solve_scan", solve_s=scan_s, passes=passes,
+         after_first_pass=first_pass, **compare_backends(res, ref, None))
+    return {name: counts[name]}
+
+
+def phase_rbd_parity(case, device):
+    """Small float64 RBD solve: card (kernel) against CPU (plain version)."""
+
+    from ilqr_tpu_torch import batched
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    problem = case[0]
+    B, T = 8, 24
+    x0s, us0 = rbd_inputs(case, B, T, torch.float64, 70, "cpu")
+    cfg = rbd_config(4, T)
+    name = cuda_riccati.kernel_name(problem.state_dim, problem.control_dim,
+                                    torch.float64)
+
+    def run(dev):
+        xs0 = batched.rollout_bl(problem, x0s.T.contiguous().to(dev),
+                                 us0.movedim(0, -1).contiguous().to(dev))
+        solve_fn = batched.make_chunked_batch_solver(
+            problem, cfg, iter_chunk=2, compact_sizes=(4,), device=dev,
+            on_chunk=lambda p, r: chunks.append((p, r)))
+        return solve_fn(xs0.movedim(-1, 0).contiguous(), us0)
+
+    chunks = []
+    cpu = run("cpu")
+    chunks.clear()
+    cuda_riccati.reset_launch_counts()
+    gpu = run(device)
+    counts = dict(cuda_riccati.launch_counts)
+    passes = int(gpu.iterations.max())
+    assert counts[name] == passes >= 1, (counts, passes)
+    assert torch.equal(cpu.status, gpu.status.cpu())
+    assert torch.equal(cpu.iterations, gpu.iterations.cpu())
+    us_rel = float((gpu.us.cpu() - cpu.us).abs().max() / cpu.us.abs().max())
+    assert us_rel <= F64_PARITY_REL_BOUND_RBD, us_rel
+    emit(phase="rbd_parity", B=B, T=T, dtype="float64", passes=passes,
+         launches=counts, status=cpu.status.tolist(), chunks=chunks,
+         compaction_fired=any(0 < r <= 4 for _, r in chunks[:-1]),
+         iterations=cpu.iterations.tolist(), us_rel_diff=us_rel,
+         bound=F64_PARITY_REL_BOUND_RBD)
+    return {name: counts[name]}
+
+
+def phase_rbd_6dof(case, device):
+    from ilqr_tpu_torch import batched
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.batching import make_batch_solver
+
+    problem = case[0]
+    n, m = problem.state_dim, problem.control_dim
+    B, T = SIX["B"], SIX["T"]
+    x0s, us0 = rbd_inputs(case, B, T, torch.float32, 80, device)
+    us_bl = us0.movedim(0, -1).contiguous()
+    cost0 = batched.total_cost_bl(
+        problem, batched.rollout_bl(problem, x0s.T.contiguous(), us_bl),
+        us_bl)
+
+    def run(cfg, x0s_run, us0_run):
+        solve_fn = make_batch_solver(problem, cfg, engine="fused",
+                                     device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_fn(x0s_run, us0_run)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    name32 = cuda_riccati.kernel_name(n, m, torch.float32)
+    name64 = cuda_riccati.kernel_name(n, m, torch.float64)
+    # A later pass climbs more rungs than the first: count it 2.5 times, and
+    # the float64 run and the scan twin as 1.2 more solves.
+    first = time_one_pass(problem, rbd_config(SIX["max_iter"], T), x0s, us0)
+    max_iter = max(3, min(SIX["max_iter"], int(
+        SIX_BUDGET_S / (2.2 * 2.5 * sum(first.values())))))
+    cfg = rbd_config(max_iter, T)
+    first_pass = compare_first_pass(
+        run(cfg.replace(max_iter=1), x0s, us0)[0],
+        run(cfg.replace(max_iter=1, backward_backend="scan"), x0s, us0)[0])
+
+    cuda_riccati.reset_launch_counts()
+    with phase_clock() as spent:
+        res, solve_s = run(cfg, x0s, us0)
+    counts = dict(cuda_riccati.launch_counts)
+    passes = int(res.iterations.max())
+    by_status = check_rbd_result(res, cost0, B, T, n, m, torch.float32)
+    assert counts[name32] == passes >= 1, (counts, passes)
+    assert sum(counts.values()) == passes, counts
+
+    # The same path in float64, a few passes: the other instantiation.
+    cuda_riccati.reset_launch_counts()
+    res64, solve64_s = run(cfg.replace(max_iter=3), x0s.double(),
+                           us0.double())
+    counts64 = dict(cuda_riccati.launch_counts)
+    passes64 = int(res64.iterations.max())
+    check_rbd_result(res64, cost0.double(), B, T, n, m, torch.float64)
+    assert counts64[name64] == passes64 >= 1, (counts64, passes64)
+
+    cuda_riccati.reset_launch_counts()
+    ref, scan_s = run(cfg.replace(backward_backend="scan"), x0s, us0)
+    assert cuda_riccati.launches() == 0
+    scan = compare_backends(res, ref, None)
+
+    emit(phase="rbd_6dof", B=B, T=T, n=n, m=m, dtype="float32",
+         max_iter=max_iter, max_iter_config=SIX["max_iter"],
+         first_pass_s=first, passes=passes, launches=counts,
+         solve_s=solve_s, lanes_by_status=by_status,
+         mean_iterations=float(res.iterations.float().mean()),
+         mean_cost_ratio=float((res.cost / cost0).mean()),
+         per_pass_s={k: v / passes for k, v in spent.items()},
+         per_pass_other_s=(solve_s - sum(spent.values())) / passes,
+         f64={"passes": passes64, "launches": counts64,
+              "solve_s": solve64_s},
+         scan=dict(scan, solve_s=scan_s, after_first_pass=first_pass))
+    return {name32: counts[name32], name64: counts64[name64]}
+
+
+def ptxas_summary(_build):
+    """``{kernel: "registers, spill bytes, shared memory"}`` from the logs
+    of the build (``nvcc -Xptxas -v``), template arguments as the name."""
+
+    out = {}
+    for name in _build.SOURCES:
+        fn = None
+        for ln in _build.log_path(name).read_text().splitlines():
+            if "Compiling entry function" in ln:
+                mangled = ln.split("'")[1]
+                args = mangled.split("kernelI", 1)[-1].split("EEv", 1)[0]
+                fn = f"{name}<{args.replace('Li', ',').replace('E', '')}>"
+                out[fn] = ""
+            elif fn and ("spill" in ln or "registers" in ln):
+                out[fn] += ln.split(":", 1)[-1].strip() + "; "
+    return out
 
 
 def main():
@@ -408,12 +993,9 @@ def main():
     _build.build()
     for name in _build.SOURCES:
         _build.load(name)
-    ptxas = [ln.strip() for name in _build.SOURCES
-             for ln in _build.log_path(name).read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=time.perf_counter() - t0,
          sources=[f"ilqr_tpu_torch/ops/csrc/{n}.cu" for n in _build.SOURCES],
-         ptxas=ptxas)
+         ptxas=ptxas_summary(_build))
 
     problem = make_two_link_problem()
     config = ILQRConfig(max_iter=30, tol=1e-5, tol_grad=1e-10,
@@ -421,19 +1003,28 @@ def main():
                         backward_backend="pallas")
 
     rows = phase_kernels(problem, device)
+    sources = dict.fromkeys(rows, KERNEL_SOURCE)
     phase_parity(problem, config, device)
     launches = phase_solve(problem, config, device)
+
+    cases = {six: rbd_case(six) for six in (False, True)}
+    wide_rows, one_pass_full = phase_rbd_kernels(cases, device)
+    sources.update(dict.fromkeys(wide_rows, WIDE_SOURCE))
+    rows.update(wide_rows)
+    launches.update(phase_rbd_solve(cases[False], device, one_pass_full))
+    launches.update(phase_rbd_parity(cases[False], device))
+    launches.update(phase_rbd_6dof(cases[True], device))
+    emit(phase="total", seconds=time.perf_counter() - t_start)
 
     kernels = []
     for name, row in sorted(rows.items()):
         assert launches[name] >= 1, (name, launches)
         kernels.append(dict(
-            name=name, route="cuda", source=KERNEL_SOURCE,
+            name=name, route="cuda", source=sources[name],
             replaces=KERNEL_REPLACES, launches=launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

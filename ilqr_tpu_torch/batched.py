@@ -20,8 +20,8 @@ batch-last Python loop (``"scan"``).
 
 Not ported yet, and refused rather than ignored: ``backward_backend=
 "associative"``, ``reg_in_value``, ``ddp``, ``parallel_alpha_block > 0``
-(the parallel-alpha ladder), and the chunked solver with straggler
-compaction.
+(the parallel-alpha ladder), and the chunked solver's host snapshots and
+in-process retry (``snapshot_every``, ``snapshot_path``, ``max_retries``).
 """
 
 from __future__ import annotations
@@ -155,7 +155,14 @@ def derivatives_bl(problem: Problem, xs, us, chunk: int = 0):
 
     n = xs.shape[1]
 
-    if problem.dynamics_jacobians is not None:
+    # A problem that takes trailing batch axes promises the same of its
+    # ``dynamics_jacobians``: time is then one more trailing axis and the
+    # hook runs once per sweep on ``x [n, T, B]``, outside any ``vmap``.
+    jac_direct = (problem.dynamics_jacobians is not None
+                  and problem.batch_trailing)
+    if jac_direct:
+        jac_b = None
+    elif problem.dynamics_jacobians is not None:
         jac_b = _vmap_last(problem.dynamics_jacobians, 2)
     elif problem.batch_trailing:
         jac_b = _jacobians_trailing(problem.dynamics)
@@ -181,18 +188,26 @@ def derivatives_bl(problem: Problem, xs, us, chunk: int = 0):
 
     quad_b = _vmap_last(quad_one, 2)
 
-    def per_t(x_t, u_t):
-        A, B = jac_b(x_t, u_t)
-        return (A, B) + quad_b(x_t, u_t)
+    def sweep(xs_c, us_c):
+        """Local models of the steps ``xs_c [Tc, n, B]``, ``us_c [Tc, m,
+        B]``."""
+
+        if jac_direct:
+            A, B = problem.dynamics_jacobians(xs_c.movedim(0, 1),
+                                              us_c.movedim(0, 1))
+            AB = (A.movedim(2, 0), B.movedim(2, 0))
+        else:
+            AB = vmap(jac_b)(xs_c, us_c)
+        return AB + vmap(quad_b)(xs_c, us_c)
 
     T = us.shape[0]
     if chunk and chunk < T:
         assert T % chunk == 0, (T, chunk)
-        parts = [vmap(per_t)(xs[c:c + chunk], us[c:c + chunk])
+        parts = [sweep(xs[c:c + chunk], us[c:c + chunk])
                  for c in range(0, T, chunk)]
         out = tuple(torch.cat(p, dim=0) for p in zip(*parts))
     else:
-        out = vmap(per_t)(xs[:-1], us)
+        out = sweep(xs[:-1], us)
 
     if problem.final_cost_quadratization is not None:
         def final_one(x):
@@ -381,6 +396,165 @@ def make_batch_last_engine(problem: Problem, x_ref_bl,
     )
 
 
+def _result_from_state(problem: Problem, state, x_ref_bl) -> SolverResult:
+    """The batch-first ``SolverResult`` of a final batch-last state."""
+
+    status = finalize_status(state.status)
+    cost = torch.where(
+        torch.isinf(state.prev_cost),
+        total_cost_bl(problem, state.xs, state.us,
+                      x_ref_bl).to(state.xs.dtype),
+        state.prev_cost)
+    return SolverResult(
+        xs=state.xs.movedim(-1, 0),
+        us=state.us.movedim(-1, 0),
+        cost=cost,
+        iterations=state.iteration,
+        status=status,
+        reg=state.reg,
+        alpha=state.alpha,
+        du_sq=state.du_sq,
+    )
+
+
+def make_chunked_batch_solver(problem: Problem,
+                              config: ILQRConfig = DEFAULT_CONFIG,
+                              iter_chunk: int = 10,
+                              x_ref=None,
+                              on_chunk=None,
+                              snapshot_every: int = 0,
+                              max_retries: int = 2,
+                              snapshot_path: Optional[str] = None,
+                              compact_sizes=(),
+                              _fault_hook=None,
+                              device=None):
+    """A chunked variant of :func:`batched_solve_fused`.
+
+    Returns ``solve_fn(xs0, us0) -> SolverResult`` (batch-FIRST interface,
+    same results as :func:`batched_solve_fused`) that runs the solver loop
+    in chunks of at most ``iter_chunk`` passes.  After each chunk
+    ``on_chunk(n_passes, n_running)`` is called (progress, logging, early
+    abort: return True to stop), and the batch may be compacted.
+
+    ``x_ref`` (batch-first ``[B, T, n]`` or None) is baked into the returned
+    solver, mirroring ``make_batch_solver``'s static problem.
+
+    ``compact_sizes`` (descending lane counts, e.g. ``(128, 32)``) turns on
+    STRAGGLER COMPACTION: once the number of RUNNING lanes fits a listed
+    size, the finished lanes are written back to a copy of the full batch
+    and the solve continues with only the stragglers, gathered into a
+    smaller batch (padded up to the listed size with finished lanes, which
+    stay frozen).  A solve whose last tenth of the lanes runs several times
+    longer than the rest then pays those tail passes for the lanes that
+    need them.  The choice of target size, the padding and the write-back
+    are those of the JAX package; there the gather goes through host
+    memory because its compiled programs have fixed shapes, here it is an
+    ``index_select`` and an indexed assignment along the lane axis on the
+    device.  The step body is per-lane, so compaction changes no lane's
+    arithmetic.
+
+    Not ported, and refused rather than ignored: ``snapshot_every > 0``,
+    ``snapshot_path`` and a ``max_retries`` or ``_fault_hook`` other than
+    the defaults — the host snapshots, the cross-process resume and the
+    in-process retry of the JAX package answer device faults of a remotely
+    attached accelerator.
+
+    Runs on ``device`` (default: the card).
+    """
+
+    unported = {
+        "snapshot_every > 0": snapshot_every > 0,
+        "snapshot_path": snapshot_path is not None,
+        "max_retries": max_retries != 2,
+        "_fault_hook": _fault_hook is not None,
+    }
+    for arg, is_set in unported.items():
+        if is_set:
+            raise NotImplementedError(
+                f"{arg} is not implemented by make_chunked_batch_solver of "
+                "ilqr_tpu_torch (host snapshots, resume and retry are not "
+                "ported)")
+
+    device = resolve_device(device)
+    x_ref_bl = (None if x_ref is None
+                else x_ref.to(device).movedim(0, -1).contiguous())
+    running_code = int(Status.RUNNING)
+    sizes = tuple(sorted(set(int(s) for s in compact_sizes), reverse=True))
+
+    def gather(state, idx):
+        return type(state)(*(a.index_select(-1, idx) for a in state))
+
+    def scatter(full, cur, idx):
+        """``full[..., idx] = cur`` on a copy.  ``idx`` holds no lane twice:
+        it is a selection of distinct lanes of a selection of distinct
+        lanes."""
+
+        out = []
+        for f, c in zip(full, cur):
+            f = f.clone()
+            f[..., idx] = c
+            out.append(f)
+        return type(full)(*out)
+
+    @highest_precision
+    def solve_fn(xs0, us0):
+        xs_bl = xs0.to(device).movedim(0, -1).contiguous()
+        us_bl = us0.to(device).movedim(0, -1).contiguous()
+        B = xs_bl.shape[-1]
+        state = initial_state(xs_bl, us_bl, config, lane_shape=(B,))
+        # Straggler-compaction bookkeeping: ``full`` holds the finished
+        # lanes of the ORIGINAL batch, ``cur_idx`` maps each current lane to
+        # its original index, ``cur_ref`` is x_ref gathered likewise.
+        # None ⇔ the state is still the full batch.
+        full = None
+        cur_idx = None
+        cur_ref = x_ref_bl
+        engine = make_batch_last_engine(problem, cur_ref, config)
+
+        n_passes = 0
+        while True:
+            k = 0
+            # One host synchronization per test of the condition.
+            while (k < iter_chunk and n_passes < config.max_iter
+                   and bool(torch.any(state.status == running_code))):
+                state = ilqr_step(engine, config, state)[0]
+                n_passes += 1
+                k += 1
+            n_running = int(torch.sum(state.status == running_code))
+            if on_chunk is not None and on_chunk(n_passes, n_running):
+                break
+            if n_running == 0 or n_passes >= config.max_iter:
+                break
+            if sizes:
+                cur_B = state.status.shape[-1]
+                # Smallest listed size that still fits the stragglers and
+                # shrinks the batch.
+                fits = [s for s in sizes if n_running <= s < cur_B]
+                if fits:
+                    target = fits[-1]
+                    if full is None:
+                        full = state
+                        cur_idx = torch.arange(cur_B, device=device)
+                    else:
+                        full = scatter(full, state, cur_idx)
+                    is_running = state.status == running_code
+                    running = torch.nonzero(is_running).flatten()
+                    done = torch.nonzero(~is_running).flatten()
+                    local_sel = torch.cat(
+                        [running, done[:target - running.numel()]])
+                    state = gather(state, local_sel)
+                    cur_idx = cur_idx[local_sel]
+                    if x_ref_bl is not None:
+                        cur_ref = x_ref_bl.index_select(-1, cur_idx)
+                        engine = make_batch_last_engine(problem, cur_ref,
+                                                        config)
+        if full is not None:
+            state = scatter(full, state, cur_idx)
+        return _result_from_state(problem, state, x_ref_bl)
+
+    return solve_fn
+
+
 @highest_precision
 def batched_solve_fused(problem: Problem, xs0, us0,
                         x_ref: Optional[torch.Tensor] = None,
@@ -405,7 +579,6 @@ def batched_solve_fused(problem: Problem, xs0, us0,
     x_ref_bl = (None if x_ref is None
                 else x_ref.to(device).movedim(0, -1).contiguous())
     B = xs_bl.shape[-1]
-    dtype = xs_bl.dtype
 
     engine = make_batch_last_engine(problem, x_ref_bl, config)
 
@@ -419,19 +592,4 @@ def batched_solve_fused(problem: Problem, xs0, us0,
         state = ilqr_step(engine, config, state)[0]
         n_passes += 1
 
-    status = finalize_status(state.status)
-    cost = torch.where(
-        torch.isinf(state.prev_cost),
-        total_cost_bl(problem, state.xs, state.us, x_ref_bl).to(dtype),
-        state.prev_cost)
-
-    return SolverResult(
-        xs=state.xs.movedim(-1, 0),
-        us=state.us.movedim(-1, 0),
-        cost=cost,
-        iterations=state.iteration,
-        status=status,
-        reg=state.reg,
-        alpha=state.alpha,
-        du_sq=state.du_sq,
-    )
+    return _result_from_state(problem, state, x_ref_bl)

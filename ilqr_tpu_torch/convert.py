@@ -1,8 +1,9 @@
 """State carried between the JAX package and the port.
 
 The solver has no weights.  What crosses is configuration and solver state:
-a config object, the 2-link parameters, a mid-solve ``StepState``, a
-``SolverResult`` and the nine local-model arrays of ``derivatives_bl``.
+a config object, the 2-link parameters, a parsed URDF (``Mechanism``), a
+mid-solve ``StepState``, a ``SolverResult`` and the nine local-model arrays
+of ``derivatives_bl``.
 Everything goes through numpy arrays and plain field names; nothing here
 imports JAX or the JAX package.  Field dtypes are kept (int32 ``iteration``
 and ``status``, the working float elsewhere), so a state round-trips.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ilqr_tpu_torch.config import ILQRConfig
+from ilqr_tpu_torch.models.rbd.urdf import JointSpec, LinkSpec, Mechanism
 from ilqr_tpu_torch.models.two_link import TwoLinkParams
 from ilqr_tpu_torch.precision import resolve_device
 from ilqr_tpu_torch.solver import SolverResult
@@ -48,6 +50,21 @@ def config_from_fields(obj) -> ILQRConfig:
 
 def two_link_params_from_fields(obj) -> TwoLinkParams:
     return _dataclass_from_fields(TwoLinkParams, obj)
+
+
+def mechanism_from_fields(obj) -> Mechanism:
+    """The port's ``Mechanism`` from any object with the same fields, e.g.
+    the JAX package's (read by attribute, links and joints too), so that
+    both packages can build a model from one parsed URDF."""
+
+    return Mechanism(
+        name=obj.name,
+        links=tuple(_dataclass_from_fields(LinkSpec, l) for l in obj.links),
+        joints=tuple(_dataclass_from_fields(JointSpec, j)
+                     for j in obj.joints),
+        parents=tuple(int(p) for p in obj.parents),
+        gravity=tuple(float(g) for g in obj.gravity),
+    )
 
 
 def _to_numpy(x) -> np.ndarray:

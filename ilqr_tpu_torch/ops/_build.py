@@ -8,6 +8,9 @@ that take raw device pointers and a stream), so it compiles in seconds with
          -shared -Xcompiler -fPIC -o build/ilqr_tpu_torch/lib<name>_<hash>.so \
          csrc/<name>.cu
 
+:func:`build` starts one ``nvcc`` per source, all together, and waits for
+them.
+
 The library's name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  The build directory
 is ``build/ilqr_tpu_torch/`` beside the package (git-ignored), or
@@ -29,7 +32,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("riccati",)
+# One shared library per source.
+SOURCES = ("riccati", "riccati_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,10 +1,13 @@
 """The fused backward Riccati recursion: CUDA kernel, wrapper, plain version.
 
 Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (batch-last entry
-``riccati_scan_pallas_bl``).  The kernel is ``csrc/riccati.cu``, written by
-hand for ``sm_90a``, built at first use by :mod:`ilqr_tpu_torch.ops._build`
-and called through ctypes.  It has no gradient (the JAX kernel has none
-either), so there is no ``torch.autograd.Function`` around it.
+``riccati_scan_pallas_bl``).  The kernel is written by hand for ``sm_90a``
+in two designs — ``csrc/riccati.cu``, one thread a lane, for ``(n, m) =
+(4, 2)``; ``csrc/riccati_wide.cu``, a lane spread over two warps with its
+matrices in shared memory, for ``(16, 8)`` and ``(24, 12)`` — built
+at first use by :mod:`ilqr_tpu_torch.ops._build` and called through ctypes.
+It has no gradient (the JAX kernel has none either), so there is no
+``torch.autograd.Function`` around it.
 
 * :func:`riccati_scan_cuda_bl` — the wrapper.  On CUDA tensors it launches
   the kernel or raises; on CPU tensors it takes the plain version.  It
@@ -39,10 +42,20 @@ import torch
 
 from ilqr_tpu_torch.ops import smallmat as sm
 
-# (n, m, dtype) -> exported launcher of csrc/riccati.cu.
+# (n, m, dtype) -> exported launcher.
 KERNELS: Dict[Tuple[int, int, torch.dtype], str] = {
     (4, 2, torch.float32): "riccati_cuda_4x2_f32",
     (4, 2, torch.float64): "riccati_cuda_4x2_f64",
+    (16, 8, torch.float32): "riccati_cuda_16x8_f32",
+    (16, 8, torch.float64): "riccati_cuda_16x8_f64",
+    (24, 12, torch.float32): "riccati_cuda_24x12_f32",
+    (24, 12, torch.float64): "riccati_cuda_24x12_f64",
+}
+
+# Launcher -> the source (csrc/<name>.cu) that exports it.
+LIBRARY: Dict[str, str] = {
+    name: "riccati" if key[:2] == (4, 2) else "riccati_wide"
+    for key, name in KERNELS.items()
 }
 
 # Launches per kernel name: one is added where the wrapper launches the
@@ -71,8 +84,8 @@ def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
         have = sorted({(k[0], k[1]) for k in KERNELS})
         raise NotImplementedError(
             f"the fused Riccati kernel is not instantiated for (n, m) = "
-            f"({n}, {m}) in {dtype}: csrc/riccati.cu holds {have} in float32 "
-            "and float64; use backward_backend='scan' or add the "
+            f"({n}, {m}) in {dtype}: csrc/ holds {have} in float32 and "
+            "float64; use backward_backend='scan' or add the "
             "instantiation") from None
 
 
@@ -83,7 +96,7 @@ _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_longlong,
 def _launcher(name: str):
     from ilqr_tpu_torch.ops import _build
 
-    fn = getattr(_build.load("riccati"), name)
+    fn = getattr(_build.load(LIBRARY[name]), name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -111,7 +124,7 @@ def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
                          symmetrize: bool = True):
     """The whole backward recursion of a batch in one kernel launch.
 
-    CUDA tensors: launches ``csrc/riccati.cu`` on the current stream (no
+    CUDA tensors: launches the kernel for ``(n, m)`` on the current stream (no
     synchronize) or raises — on a missing ``(n, m)`` instantiation
     (``NotImplementedError``), on a wrong device, dtype, shape or a
     non-contiguous input, on a failed build, on a refused launch.  CPU
@@ -120,14 +133,15 @@ def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
 
     arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
     T, n, m, B = _check_shapes(*arrays)
-    name = kernel_name(n, m, As.dtype)
     if any(x.device != As.device or x.dtype != As.dtype for x in arrays):
         raise ValueError("all inputs must share one device and one dtype")
 
     if As.device.type == "cpu":
+        # Any (n, m): the plain version is not instantiated.
         return riccati_scan_plain_bl(*arrays, reg, symmetrize=symmetrize)
     if As.device.type != "cuda":
         raise ValueError(f"unsupported device {As.device}")
+    name = kernel_name(n, m, As.dtype)
     for x in arrays:
         if not x.is_contiguous():
             raise ValueError("inputs must be contiguous batch-last tensors")

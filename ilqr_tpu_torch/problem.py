@@ -49,10 +49,12 @@ class Problem:
     #   dynamics_hessians(x, u) -> Fzz [n, n+m, n+m] (z = (x, u)) — only
     #   consulted under ILQRConfig(ddp=True); autodiff otherwise.
     dynamics_hessians: Optional[Callable] = None
-    # The port's one addition.  True promises that ``dynamics``, ``cost``
-    # and ``final_cost`` also accept trailing batch axes — ``x [n, ...]``,
-    # ``u [m, ...]`` giving ``[n, ...]`` / ``[...]`` — as functions do that
-    # only index ``x[i]``/``u[i]`` and stack or sum over the leading axis.
+    # The port's one addition.  True promises that ``dynamics``, ``cost``,
+    # ``final_cost`` and, where given, ``dynamics_jacobians`` also accept
+    # trailing batch axes — ``x [n, ...]``, ``u [m, ...]`` giving
+    # ``[n, ...]`` / ``[...]`` / ``([n, n, ...], [n, m, ...])`` — as
+    # functions do that only index ``x[i]``/``u[i]`` and stack or sum over
+    # the leading axis.  (The cost quadratization hooks stay per-scenario.)
     # The batch-last engine then calls them directly instead of through
     # ``torch.func.vmap``, which spares the per-operation cost of vmap in
     # the T-step rollout loops.  Same values either way.

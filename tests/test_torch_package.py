@@ -33,6 +33,8 @@ sys.path.insert(0, {root!r})
 import ilqr_tpu_torch, ilqr_tpu_torch.batched, ilqr_tpu_torch.convert
 import ilqr_tpu_torch.parallel.batching, ilqr_tpu_torch.models
 import ilqr_tpu_torch.ops._build, ilqr_tpu_torch.ops.cuda_riccati
+import ilqr_tpu_torch.ops.linalg, ilqr_tpu_torch.models.rbd
+import ilqr_tpu_torch.models.rbd.kinematics
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ilqr_tpu"))

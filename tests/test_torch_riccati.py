@@ -104,13 +104,29 @@ def _random_models(n, m, B, T, dtype=torch.float64):
 
 
 def test_wrapper_raises_on_missing_instantiation():
-    """(16, 8) has no kernel yet: the wrapper says so, whatever the device,
-    and does not quietly take the plain version."""
+    """A shape or type with no kernel: the launcher table says so by name.
+    On CPU tensors the wrapper needs no instantiation — it runs the plain
+    version at any (n, m), as the JAX package runs its kernel in interpret
+    mode there — and it launches nothing."""
 
-    with pytest.raises(NotImplementedError, match=r"\(16, 8\)"):
-        riccati_scan_cuda_bl(*_random_models(16, 8, 2, 3), 1e-2)
+    with pytest.raises(NotImplementedError, match=r"\(3, 1\)"):
+        cuda_riccati.kernel_name(3, 1, torch.float64)
     with pytest.raises(NotImplementedError, match="float16"):
-        riccati_scan_cuda_bl(*_random_models(4, 2, 2, 3, torch.float16), 1e-2)
+        cuda_riccati.kernel_name(4, 2, torch.float16)
+    for n, m in ((4, 2), (16, 8), (24, 12)):
+        for dtype in (torch.float32, torch.float64):
+            name = cuda_riccati.kernel_name(n, m, dtype)
+            assert name in cuda_riccati.launch_counts
+            assert name in cuda_riccati.LIBRARY
+    before = cuda_riccati.launches()
+    models = _random_models(5, 3, 2, 3)
+    out = riccati_scan_cuda_bl(*models, 1e-2)
+    ref = riccati_scan_plain_bl(*models, 1e-2)
+    # Bit for bit (random blocks are not positive definite: NaNs compare
+    # equal where both have them).
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=0.0, atol=0.0, equal_nan=True)
+    assert cuda_riccati.launches() == before
 
 
 def test_wrapper_checks_shapes_and_dtypes():
@@ -144,6 +160,69 @@ def test_plain_version_is_generic_in_n_and_m():
     ref = jax_riccati_bl_scan(*(jnp.asarray(a) for a in models), 1e-2)
     out = riccati_scan_plain_bl(*local_models_from_numpy(models, device="cpu"),
                                 1e-2)
+    _check(out, ref)
+
+
+def _spd_models(n, m, B, Th, seed):
+    """Local models with SPD cost blocks and near-identity dynamics, as
+    numpy arrays."""
+
+    rng = np.random.default_rng(seed)
+
+    def spd(k):
+        R = rng.standard_normal((Th, k, k, B))
+        return (np.einsum("tikb,tjkb->tijb", R, R) / k
+                + np.eye(k)[None, :, :, None])
+
+    return (np.eye(n)[None, :, :, None]
+            + 0.1 * rng.standard_normal((Th, n, n, B)),
+            0.3 * rng.standard_normal((Th, n, m, B)),
+            rng.standard_normal((Th, n, B)), rng.standard_normal((Th, m, B)),
+            spd(n), 0.1 * rng.standard_normal((Th, m, n, B)), spd(m),
+            rng.standard_normal((n, B)), spd(n)[0])
+
+
+@pytest.mark.parametrize("per_lane_reg", [False, True],
+                         ids=["scalar_reg", "lane_reg"])
+@pytest.mark.parametrize("n,m", [(16, 8), (24, 12)])
+def test_plain_version_matches_jax_scan_at_the_rbd_shapes(n, m, per_lane_reg):
+    """The plain version of the (16, 8) and (24, 12) kernels against the
+    JAX scan, the TPU kernel's own reference in ``tests/
+    test_pallas_riccati.py`` (at these shapes the kernel's interpret mode
+    unrolls into a program that takes the CPU compiler many minutes): rtol
+    1e-10, that test's bar."""
+
+    B, Th = 3, 5
+    models = _spd_models(n, m, B, Th, seed=n)
+    reg = np.array([1e-3, 1e-1, 1.0]) if per_lane_reg else 1e-2
+    jreg = jnp.asarray(reg) if per_lane_reg else reg
+    ref = jax_riccati_bl_scan(*(jnp.asarray(a) for a in models), jreg,
+                              symmetrize=not per_lane_reg)
+    treg = to_torch(reg) if per_lane_reg else reg
+    out = riccati_scan_plain_bl(*local_models_from_numpy(models, device="cpu"),
+                                treg, symmetrize=not per_lane_reg)
+    assert out[1].shape == (Th, m, n, B)
+    _check(out, ref)
+
+
+def test_pallas_backend_on_cpu_runs_any_shape():
+    """``backward_backend="pallas"`` on CPU tensors at (3, 1), a shape with
+    no kernel: the port runs the plain version, the JAX package its kernel
+    in interpret mode, and they agree."""
+
+    from ilqr_tpu.batched import riccati_bl as jax_riccati_bl
+    from ilqr_tpu.config import ILQRConfig as JaxConfig
+    from ilqr_tpu_torch.batched import riccati_bl
+    from ilqr_tpu_torch.convert import config_from_fields
+
+    jcfg = JaxConfig(backward_backend="pallas")
+    models = _spd_models(3, 1, 4, 6, seed=9)
+    ref = jax_riccati_bl(*(jnp.asarray(a) for a in models), reg=1e-2,
+                         config=jcfg)
+    before = cuda_riccati.launches()
+    out = riccati_bl(*local_models_from_numpy(models, device="cpu"),
+                     reg=1e-2, config=config_from_fields(jcfg))
+    assert cuda_riccati.launches() == before
     _check(out, ref)
 
 
