@@ -69,8 +69,30 @@ Phases, one JSON line each:
                 pass says that would not fit the budget), then a short
                 float64 solve and the scan backend, held as in ``rbd_solve``
                 (one pass tightly, the cut solve by median lane and cost).
+10. ``batched_entry``  the kernel's batch-first entry
+                ``riccati_scan_cuda_batched`` at every instantiation ((4, 2)
+                B=4096 T=100, (16, 8) B=256 T=100, (24, 12) B=64 T=50, both
+                types): equal (``torch.equal``) to the batch-last entry on
+                the transposed inputs, within the bounds above of the plain
+                version, then the times of the kernel, of its layout copies
+                and of the whole entry.
+11. ``vmap_solve``  the third path: the per-scenario solver on a leading
+                batch axis, ``make_batch_solver(engine="vmap")``, at phase
+                ``solve``'s width and config; the batch-first launches are
+                set to 0 before and read after (one a pass); held against
+                the fused solve of phase ``solve``, timed phase by phase,
+                and in float64 at B=8, T=24 card against CPU.
+12. ``single``  one scenario, no batch axis: the float64 ``solve`` of the
+                oracle's golden ``tests/fixtures/two_link_T100.npz`` on the
+                card (``|u - u_ref|_inf < 1e-6``, the same iterations and
+                cost), and the latency of one float32 solve at T=100.
+13. ``mpc``, ``mpc_batch``  ``mpc_run`` (one scenario, H=50) and
+                ``batch_mpc_run`` (B=1024, H=50, with the kernel, so every
+                iteration of every replan launches the batch-first entry);
+                ``n_steps`` cut from 50 to MPC_BUDGET_S, the cut printed.
 
-Then one line with every kernel's numbers, and the last line
+Then one line with every kernel's numbers (the batch-first entry in rows of
+its own, at each instantiation its path launched), and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -312,37 +334,61 @@ def time_one_pass(problem, config, x0s, us0):
     return dict(derivatives_s=t_d, riccati_s=t_r, forward_s=t_f)
 
 
-@contextlib.contextmanager
-def phase_clock():
-    """Seconds spent in ``derivatives_bl``, ``riccati_bl`` and
-    ``forward_pass_bl`` while the block runs (a synchronize around every
-    call)."""
+def batch_last_phases():
+    """The fused engine's phases: ``{label: [(module, function name)]}``."""
 
     from ilqr_tpu_torch import batched
 
-    spent = {"derivatives_bl": 0.0, "riccati_bl": 0.0, "forward_pass_bl": 0.0}
-    originals = {k: getattr(batched, k) for k in spent}
+    return {k: [(batched, k)]
+            for k in ("derivatives_bl", "riccati_bl", "forward_pass_bl")}
 
-    def wrap(name):
-        fn = originals[name]
 
+def per_scenario_phases():
+    """The per-scenario engine's phases, as the batched ``solve`` runs them:
+    the derivative sweeps of ``backward_pass``, the kernel's batch-first
+    entry (its batch-last copy of the inputs included) and ``forward_pass``."""
+
+    from ilqr_tpu_torch import backward, forward
+    from ilqr_tpu_torch.ops import riccati_dispatch
+
+    return {"derivatives": [(backward, "problem_linearize"),
+                            (backward, "problem_quadratize_running"),
+                            (backward, "problem_quadratize_final")],
+            "riccati_batch_first": [(riccati_dispatch,
+                                     "riccati_scan_cuda_batched")],
+            "forward_pass": [(forward, "forward_pass")]}
+
+
+@contextlib.contextmanager
+def phase_clock(phases=None):
+    """Seconds spent in each phase's functions while the block runs (a
+    synchronize around every call); ``phases`` as :func:`batch_last_phases`
+    gives them, which is the default."""
+
+    phases = batch_last_phases() if phases is None else phases
+    spent = dict.fromkeys(phases, 0.0)
+    originals = [(label, mod, attr, getattr(mod, attr))
+                 for label, targets in phases.items()
+                 for mod, attr in targets]
+
+    def wrap(label, fn):
         def timed(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t0
+            spent[label] += time.perf_counter() - t0
             return out
 
         return timed
 
     try:
-        for k in spent:
-            setattr(batched, k, wrap(k))
+        for label, mod, attr, fn in originals:
+            setattr(mod, attr, wrap(label, fn))
         yield spent
     finally:
-        for k, fn in originals.items():
-            setattr(batched, k, fn)
+        for _, mod, attr, fn in originals:
+            setattr(mod, attr, fn)
 
 
 def phase_solve(problem, config, device):
@@ -465,8 +511,9 @@ def phase_solve(problem, config, device):
                   "bit_equal_to_fused_solve": all(
                       torch.equal(getattr(res_c, f), getattr(res, f))
                       for f in ("status", "iterations", "us", "cost"))})
-    return {"riccati_cuda_4x2_f32": counts["riccati_cuda_4x2_f32"],
-            "riccati_cuda_4x2_f64": counts64["riccati_cuda_4x2_f64"]}
+    return ({"riccati_cuda_4x2_f32": counts["riccati_cuda_4x2_f32"],
+             "riccati_cuda_4x2_f64": counts64["riccati_cuda_4x2_f64"]},
+            res, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -478,13 +525,13 @@ RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=15, max_iter=100)
 SIX = dict(B=64, T=50, max_iter=15)
 # Seconds the RBD solve and its scan twin may take together: decides T, and
 # stops the solve at a chunk boundary (10 passes) once half of it is spent.
-RBD_BUDGET_S = 200.0
+RBD_BUDGET_S = 150.0
 # Rungs of the line-search ladder the timed forward pass at T=1000 may climb
 # (a rung is one rollout of the whole batch, half a minute there).
 FULL_DEPTH_RUNGS = 3
 # The same for the 6-DoF solve, its float64 run and its scan twin: caps
 # max_iter from the time of the first pass.
-SIX_BUDGET_S = 120.0
+SIX_BUDGET_S = 100.0
 
 # Float32 bound of the lane-spread kernel against the plain version,
 # relative to each output's largest magnitude.  The reasons are those of
@@ -815,6 +862,10 @@ def phase_rbd_solve(case, device, one_pass_full):
     assert counts[name] == passes >= 1, (counts, passes)
     assert sum(counts.values()) == passes, counts
     compacted = any(0 < r <= 128 for _, r in chunks[:-1])
+    if passes < max_iter and chunks[-1][1] > 0:
+        print(f"chip_smoke: rbd_solve: stopped after {passes} of {max_iter} "
+              f"passes by the {RBD_BUDGET_S} s budget", file=sys.stderr,
+              flush=True)
 
     emit(phase="rbd_solve", B=B, T=T, n=n, m=m, dtype="float32",
          max_iter=max_iter, one_pass_at_T1000_s=one_pass_full,
@@ -908,6 +959,10 @@ def phase_rbd_6dof(case, device):
     max_iter = max(3, min(SIX["max_iter"], int(
         SIX_BUDGET_S / (2.2 * 2.5 * sum(first.values())))))
     cfg = rbd_config(max_iter, T)
+    if max_iter < SIX["max_iter"]:
+        print(f"chip_smoke: rbd_6dof: max_iter cut from {SIX['max_iter']} to "
+              f"{max_iter} by the {SIX_BUDGET_S} s budget", file=sys.stderr,
+              flush=True)
     first_pass = compare_first_pass(
         run(cfg.replace(max_iter=1), x0s, us0)[0],
         run(cfg.replace(max_iter=1, backward_backend="scan"), x0s, us0)[0])
@@ -947,6 +1002,342 @@ def phase_rbd_6dof(case, device):
               "solve_s": solve64_s},
          scan=dict(scan, solve_s=scan_s, after_first_pass=first_pass))
     return {name32: counts[name32], name64: counts64[name64]}
+
+
+# ---------------------------------------------------------------------------
+# The third path: the per-scenario solver on leading batch axes (where the
+# JAX package vmaps it), which reaches the kernel's batch-first entry.
+# ---------------------------------------------------------------------------
+
+BATCH_FIRST_REPLACES = "ilqr_tpu/ops/pallas_riccati.py:284"
+BATCH_FIRST_ENTRY = "ilqr_tpu_torch/ops/cuda_riccati.py::riccati_scan_cuda_batched"
+# The batch-first entry at each instantiation: (n, m), B, T.
+BATCH_FIRST_SHAPES = (((4, 2), 4096, 100), ((16, 8), 256, 100),
+                      ((24, 12), 64, 50))
+# Seconds the float32 vmap solve may take over its two runs: caps max_iter
+# from the time of its first pass, as SOLVE_BUDGET_S does.
+VMAP_BUDGET_S = 60.0
+# bench.py's MPC shapes: --config mpc (one scenario) and --config mpc_batch.
+MPC = dict(B=1024, H=50, n_steps=50)
+# Seconds each MPC run may take; n_steps is cut to fit (and the cut printed).
+MPC_BUDGET_S = 30.0
+# Float64 `us` of the per-scenario solve, card (kernel) against CPU (plain
+# version), relative to max|us|.
+F64_VMAP_PARITY_REL_BOUND = 1e-10
+# The oracle's golden trajectory (tests/test_fixtures.py holds the JAX
+# solve to it the same way).
+FIXTURE = "tests/fixtures/two_link_T100.npz"
+FIXTURE_U_BOUND = 1e-6
+FIXTURE_COST_RTOL = 1e-9
+
+
+def batch_first_models(problem_or_case, n, B, T, dtype, device):
+    """Local models as a batched caller hands them over: contiguous
+    batch-first ``[B, T, ...]`` / ``[B, ...]``."""
+
+    if n == N:
+        models = local_models(problem_or_case, B, T, dtype, 90, device)
+    else:
+        models = rbd_local_models(problem_or_case, B, T, torch.float32, 91,
+                                  device)[0]
+        models = tuple(x.to(dtype) for x in models)
+    return tuple(x.movedim(-1, 0).contiguous() for x in models)
+
+
+def phase_batched_entry(problem, cases, device):
+    """``riccati_scan_cuda_batched`` at each instantiation: equal to the
+    batch-last entry on the transposed inputs (the same kernel, so
+    ``torch.equal``), within the bounds of the kernel checks of the plain
+    version, then the times of the kernel, of the entry and of its layout
+    copies."""
+
+    from ilqr_tpu_torch.ops.cuda_riccati import (from_batch_last,
+                                                 kernel_name,
+                                                 riccati_scan_cuda_batched,
+                                                 riccati_scan_cuda_bl,
+                                                 riccati_scan_plain_batched,
+                                                 to_batch_last)
+
+    rows = {}
+    for (n, m), B, T in BATCH_FIRST_SHAPES:
+        source = problem if n == N else cases[n == 24]
+        m32 = batch_first_models(source, n, B, T, torch.float32, device)
+        for dtype in (torch.float32, torch.float64):
+            bf = tuple(x.to(dtype) for x in m32)
+            reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
+            got = riccati_scan_cuda_batched(*bf, reg)
+            bl = to_batch_last(bf)
+            same = from_batch_last(riccati_scan_cuda_bl(*bl, reg))
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            plain = riccati_scan_plain_batched(*bf, reg)
+            b.record()
+            torch.cuda.synchronize()
+            plain_ms = a.elapsed_time(b)
+            if dtype == torch.float64:
+                bound = 1e-10
+            else:
+                bound = F32_REL_BOUND if n == N else F32_REL_BOUND_RBD
+            max_abs, max_rel = 0.0, 0.0
+            for name, g, e, p in zip(("duffs", "Ks", "dv1", "dv2"), got,
+                                     same, plain):
+                assert g.shape == p.shape and g.dtype == p.dtype, name
+                assert g.shape[0] == B, (name, g.shape)
+                assert torch.equal(g, e), f"{name}: batch-first != batch-last"
+                assert bool(torch.isfinite(g).all()), f"{name}: not finite"
+                r = rel_err(g, p)
+                assert r <= bound, ((n, m), str(dtype), name, r, bound)
+                max_abs = max(max_abs, float((g - p).abs().max()))
+                max_rel = max(max_rel, r)
+            bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
+            rows[kernel_name(n, m, dtype)] = dict(
+                n=n, m=m, B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel,
+                rel_bound=bound, equal_to_batch_last=True,
+                ms=sync_time(lambda: riccati_scan_cuda_bl(*bl, reg), 30),
+                transpose_ms=sync_time(lambda: to_batch_last(bf), 30),
+                entry_ms=sync_time(lambda: riccati_scan_cuda_batched(*bf, reg),
+                                   30),
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+            del got, same, plain, bl, bf
+        del m32
+    emit(phase="batched_entry", entry=BATCH_FIRST_ENTRY,
+         outputs="batch-first views of the kernel's outputs, no copy",
+         f64_rel_bound=1e-10, f32_rel_bound=F32_REL_BOUND,
+         f32_rel_bound_wide=F32_REL_BOUND_RBD, rows=rows)
+    return rows
+
+
+def count_batch_first(name):
+    """Launches of the batch-first entry at ``name`` since the last reset;
+    asserts that no other kernel launched."""
+
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    counts = dict(cuda_riccati.batched_launch_counts)
+    assert sum(cuda_riccati.launch_counts.values()) == 0, (
+        cuda_riccati.launch_counts)
+    assert sum(counts.values()) == counts[name], counts
+    return counts[name]
+
+
+def phase_vmap_solve(problem, cfg, fused, device):
+    """``make_batch_solver(engine="vmap")`` at the first path's full width
+    with phase ``solve``'s config (``cfg``) and against its fused result
+    (``fused``), then a float64 card-against-CPU check."""
+
+    from ilqr_tpu_torch.config import Status
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.batching import (batch_metrics,
+                                                  make_batch_solver)
+
+    B, T = HEADLINE["B"], HEADLINE["T"]
+    x0s, us0 = scenario_inputs(B, T, torch.float32, 0, device)
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+
+    def run(cfg_run, x0s_run, us0_run, dev=device):
+        solve_fn = make_batch_solver(problem, cfg_run, engine="vmap",
+                                     device=dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_fn(x0s_run, us0_run)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # One pass first: cap max_iter if the two runs below would not fit.
+    _, one_s = run(cfg.replace(max_iter=1), x0s, us0)
+    cap = max(3, min(cfg.max_iter, int(VMAP_BUDGET_S / (2 * 1.5 * one_s))))
+    cfg_v = cfg.replace(max_iter=cap)
+
+    # The path: counts set to 0 just before, read just after.
+    cuda_riccati.reset_launch_counts()
+    res, solve_s = run(cfg_v, x0s, us0)
+    launches = count_batch_first(name)
+    passes = int(res.iterations.max())
+    assert launches == passes >= 1, (launches, passes)
+    assert res.us.shape == (B, T, M) and res.us.dtype == torch.float32
+    ok = ((res.status == int(Status.CONVERGED))
+          | (res.status == int(Status.MAX_ITER)))
+    assert bool(ok.all()), res.status.unique().tolist()
+    for f in (res.xs, res.us, res.cost):
+        assert bool(torch.isfinite(f).all())
+
+    # Against the fused engine on the same inputs.
+    same_it = res.iterations == fused.iterations
+    frac_same = float(same_it.float().mean())
+    assert frac_same >= 0.98, frac_same
+    assert bool((res.status == fused.status)[same_it].all())
+    us_rel = float((res.us[same_it] - fused.us[same_it]).abs().max()
+                   / fused.us.abs().max())
+    assert us_rel <= F32_SOLVE_REL_BOUND, us_rel
+
+    # Once more with each phase timed.
+    with phase_clock(per_scenario_phases()) as spent:
+        res2, timed_s = run(cfg_v, x0s, us0)
+    assert torch.equal(res2.status, res.status)
+
+    # Float64 at a small size: card (kernel) against CPU (plain version).
+    x64, u64 = scenario_inputs(8, 24, torch.float64, 40, "cpu")
+    cfg64 = cfg.replace(max_iter=20)
+    cpu, _ = run(cfg64, x64, u64, "cpu")
+    name64 = cuda_riccati.kernel_name(N, M, torch.float64)
+    cuda_riccati.reset_launch_counts()
+    gpu, _ = run(cfg64, x64, u64)
+    launches64 = count_batch_first(name64)
+    passes64 = int(gpu.iterations.max())
+    assert launches64 == passes64 >= 1, (launches64, passes64)
+    assert torch.equal(cpu.status, gpu.status.cpu())
+    assert torch.equal(cpu.iterations, gpu.iterations.cpu())
+    us64_rel = float((gpu.us.cpu() - cpu.us).abs().max() / cpu.us.abs().max())
+    assert us64_rel <= F64_VMAP_PARITY_REL_BOUND, us64_rel
+
+    metrics = {k: float(v) for k, v in batch_metrics(res).items()}
+    emit(phase="vmap_solve", B=B, T=T, n=N, m=M, dtype="float32",
+         engine="vmap", max_iter_cap=cap, max_iter_config=cfg.max_iter,
+         one_pass_s=one_s, passes=passes, batch_first_launches={name: launches},
+         solve_s=solve_s, solves_per_s=B / solve_s,
+         lanes_converged=int(metrics["n_converged"]),
+         mean_iterations=metrics["mean_iterations"],
+         per_pass_s={k: v / passes for k, v in spent.items()},
+         per_pass_other_s=(timed_s - sum(spent.values())) / passes,
+         timed_solve_s=timed_s,
+         fused={"lanes_same_iterations": frac_same,
+                "us_rel_diff_same_lanes": us_rel,
+                "bound": F32_SOLVE_REL_BOUND},
+         f64={"B": 8, "T": 24, "passes": passes64,
+              "batch_first_launches": {name64: launches64},
+              "status": cpu.status.tolist(),
+              "iterations": cpu.iterations.tolist(),
+              "us_rel_diff_card_vs_cpu": us64_rel,
+              "bound": F64_VMAP_PARITY_REL_BOUND})
+    return {name: launches, name64: launches64}
+
+
+def phase_single(problem, device):
+    """One scenario, no batch axis: the float64 ``solve`` of the oracle's
+    golden trajectory on the card, then the latency of one float32 solve at
+    T=100 (``bench.py --config single``)."""
+
+    import pathlib
+
+    import numpy as np
+
+    from ilqr_tpu_torch.config import ILQRConfig, Status
+    from ilqr_tpu_torch.problem import problem_dynamics, rollout
+    from ilqr_tpu_torch.solver import solve
+
+    fx = np.load(pathlib.Path(__file__).resolve().parent / FIXTURE)
+    iters = int(fx["iterations"])
+    assert bool(fx["converged"])
+    res = solve(problem, torch.as_tensor(fx["xs0"]),
+                torch.as_tensor(fx["us0"]),
+                config=ILQRConfig(max_iter=iters + 50, tol=float(fx["tol"])),
+                device=device)
+    u_err = float((res.us.cpu() - torch.as_tensor(fx["us_ref"])).abs().max())
+    cost_rel = abs(float(res.cost) - float(fx["cost_ref"])) / abs(
+        float(fx["cost_ref"]))
+    assert res.us.device.type == torch.device(device).type
+    assert res.us.dtype == torch.float64
+    assert u_err < FIXTURE_U_BOUND, u_err
+    assert int(res.iterations) == iters, (int(res.iterations), iters)
+    assert cost_rel <= FIXTURE_COST_RTOL, cost_rel
+
+    T = 100
+    cfg = ILQRConfig(max_iter=30, tol=1e-5, tol_grad=1e-10)
+    x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], dtype=torch.float32,
+                      device=device)
+    us0 = torch.zeros((T, M), dtype=torch.float32, device=device)
+    xs0 = rollout(lambda x, u: problem_dynamics(problem, x, u), x0, us0)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve(problem, xs0, us0, config=cfg, device=device)
+        status = int(r.status)
+        times.append(time.perf_counter() - t0)
+    assert status in (int(Status.CONVERGED), int(Status.MAX_ITER)), status
+    assert bool(torch.isfinite(r.us).all()) and r.us.dtype == torch.float32
+    emit(phase="single", fixture=FIXTURE, fixture_iterations=iters,
+         fixture_us_max_abs_err=u_err, fixture_bound=FIXTURE_U_BOUND,
+         fixture_cost_rel_diff=cost_rel, fixture_cost_rtol=FIXTURE_COST_RTOL,
+         latency_T=T, latency_dtype="float32",
+         latency_s_warm_median=statistics.median(times[1:]),
+         latency_s_all=times, iterations=int(r.iterations), status=status)
+
+
+def phase_mpc(problem, device):
+    """``mpc_run`` with ``bench.py --config mpc``'s shape, then
+    ``batch_mpc_run`` with ``--config mpc_batch``'s, the latter with the
+    kernel (``backward_backend="pallas"``): every replan's backward passes
+    go through the batch-first entry.  ``n_steps`` is cut to MPC_BUDGET_S
+    from the time of a two-step run."""
+
+    from ilqr_tpu_torch.config import ILQRConfig, Status
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.mpc import batch_mpc_run, mpc_run
+
+    H, STEPS = MPC["H"], MPC["n_steps"]
+    out = {}
+
+    def run(fn, x0, n_steps, cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(problem, x0, H, n_steps, cfg, device=device)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def check(r, n_steps, lead):
+        assert r.us.shape == lead + (n_steps, M)
+        assert r.xs.shape == lead + (n_steps + 1, N)
+        for f in (r.xs, r.us, r.costs):
+            assert bool(torch.isfinite(f).all())
+        return {Status(int(c)).name: int((r.statuses == c).sum())
+                for c in r.statuses.unique()}
+
+    x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], dtype=torch.float32,
+                      device=device)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x0s = (x0.cpu() + 0.1 * torch.randn((MPC["B"], N), generator=gen)
+           ).to(device)
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+    for tag, fn, x, cfg in (
+            ("mpc", mpc_run, x0,
+             ILQRConfig(max_iter=10, tol=1e-5, tol_grad=1e-10)),
+            ("mpc_batch", batch_mpc_run, x0s,
+             ILQRConfig(max_iter=10, tol=1e-5, tol_grad=1e-10,
+                        tol_grad_rel=1e-6, backward_backend="pallas"))):
+        _, two_s = run(fn, x, 2, cfg)
+        n_steps = max(2, min(STEPS, int(MPC_BUDGET_S / (two_s / 2))))
+        cuda_riccati.reset_launch_counts()
+        r, total_s = run(fn, x, n_steps, cfg)
+        lead = tuple(x.shape[:-1])
+        statuses = check(r, n_steps, lead)
+        row = dict(B=x.shape[0] if lead else 1, horizon=H,
+                   n_steps=n_steps, n_steps_config=STEPS,
+                   backward_backend=cfg.backward_backend,
+                   total_s=total_s, ms_per_replan=total_s / n_steps * 1e3,
+                   statuses=statuses,
+                   mean_iterations=float(r.iterations.float().mean()))
+        if lead:
+            launches = count_batch_first(name)
+            passes = int(r.iterations.max(dim=0).values.sum())
+            assert launches == passes >= n_steps, (launches, passes)
+            row.update(batch_first_launches={name: launches},
+                       passes=passes,
+                       scenario_replans_per_s=x.shape[0] * n_steps / total_s)
+            out[name] = launches
+        else:
+            # One scenario runs the scan, as in the JAX package.
+            assert cuda_riccati.launches() == 0
+        if n_steps < STEPS:
+            print(f"chip_smoke: {tag}: n_steps cut from {STEPS} to {n_steps} "
+                  f"by the {MPC_BUDGET_S} s budget", file=sys.stderr,
+                  flush=True)
+        emit(phase=tag, **row)
+    return out
 
 
 def ptxas_summary(_build):
@@ -1005,7 +1396,7 @@ def main():
     rows = phase_kernels(problem, device)
     sources = dict.fromkeys(rows, KERNEL_SOURCE)
     phase_parity(problem, config, device)
-    launches = phase_solve(problem, config, device)
+    launches, fused, solve_cfg = phase_solve(problem, config, device)
 
     cases = {six: rbd_case(six) for six in (False, True)}
     wide_rows, one_pass_full = phase_rbd_kernels(cases, device)
@@ -1014,6 +1405,12 @@ def main():
     launches.update(phase_rbd_solve(cases[False], device, one_pass_full))
     launches.update(phase_rbd_parity(cases[False], device))
     launches.update(phase_rbd_6dof(cases[True], device))
+
+    bf_rows = phase_batched_entry(problem, cases, device)
+    bf_launches = phase_vmap_solve(problem, solve_cfg, fused, device)
+    phase_single(problem, device)
+    for name, count in phase_mpc(problem, device).items():
+        bf_launches[name] += count
     emit(phase="total", seconds=time.perf_counter() - t_start)
 
     kernels = []
@@ -1023,6 +1420,17 @@ def main():
             name=name, route="cuda", source=sources[name],
             replaces=KERNEL_REPLACES, launches=launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    # The batch-first entry, at each instantiation its path launched.
+    for name, count in sorted(bf_launches.items()):
+        row = bf_rows[name]
+        assert count >= 1, (name, bf_launches)
+        kernels.append(dict(
+            name=f"{name}_batch_first", route="cuda", source=sources[name],
+            entry=BATCH_FIRST_ENTRY, replaces=BATCH_FIRST_REPLACES,
+            launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            transpose_ms=row["transpose_ms"], entry_ms=row["entry_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

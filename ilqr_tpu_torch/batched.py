@@ -29,9 +29,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.func import grad, jacfwd, jvp, vmap
+from torch.func import grad, jacfwd, vmap
 
 from ilqr_tpu_torch.config import DEFAULT_CONFIG, ILQRConfig, Status
+from ilqr_tpu_torch.derivatives import jacobians_trailing
 from ilqr_tpu_torch.ops import smallmat as sm
 from ilqr_tpu_torch.ops.cuda_riccati import (riccati_loop_bl,
                                              riccati_scan_cuda_bl)
@@ -69,27 +70,6 @@ def _vmap_last(fn, n_in: int):
         return tuple(map(last, out)) if isinstance(out, tuple) else last(out)
 
     return wrapped
-
-
-def _jacobians_trailing(dynamics):
-    """``(x [n, *L], u [m, *L]) -> (A [n, n, *L], B [n, m, *L])`` by
-    forward-mode AD of a dynamics that takes trailing batch axes: one
-    ``jvp`` per input direction, vmapped over the ``n + m`` basis tangents
-    (what ``jacfwd`` does per scenario, without a ``vmap`` over scenarios —
-    every ``x[i]`` keeps its lane axes, so nothing is promoted to float64,
-    see :func:`_vmap_last`)."""
-
-    def jac(x, u):
-        n, m = x.shape[0], u.shape[0]
-        eye = torch.eye(n + m, dtype=x.dtype, device=x.device)
-        lanes = (1,) * (x.ndim - 1)
-        tx = eye[:, :n].reshape((n + m, n) + lanes).expand((n + m,) + x.shape)
-        tu = eye[:, n:].reshape((n + m, m) + lanes).expand((n + m,) + u.shape)
-        J = vmap(lambda a, b: jvp(dynamics, (x, u), (a, b))[1])(tx, tu)
-        J = J.movedim(0, 1)                 # [n, n + m, *L]
-        return J[:, :n], J[:, n:]
-
-    return jac
 
 
 def _batched_callables(problem: Problem):
@@ -165,7 +145,7 @@ def derivatives_bl(problem: Problem, xs, us, chunk: int = 0):
     elif problem.dynamics_jacobians is not None:
         jac_b = _vmap_last(problem.dynamics_jacobians, 2)
     elif problem.batch_trailing:
-        jac_b = _jacobians_trailing(problem.dynamics)
+        jac_b = jacobians_trailing(problem.dynamics)
     else:
         jac_b = _vmap_last(jacfwd(problem.dynamics, argnums=(0, 1)), 2)
 

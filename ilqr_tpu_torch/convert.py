@@ -2,8 +2,9 @@
 
 The solver has no weights.  What crosses is configuration and solver state:
 a config object, the 2-link parameters, a parsed URDF (``Mechanism``), a
-mid-solve ``StepState``, a ``SolverResult`` and the nine local-model arrays
-of ``derivatives_bl``.
+mid-solve ``StepState``, a result namedtuple (``SolverResult``,
+``BackwardResult``, ``ForwardResult``, ``MPCResult``) and the nine
+local-model arrays of ``derivatives_bl``.
 Everything goes through numpy arrays and plain field names; nothing here
 imports JAX or the JAX package.  Field dtypes are kept (int32 ``iteration``
 and ``status``, the working float elsewhere), so a state round-trips.
@@ -21,7 +22,6 @@ from ilqr_tpu_torch.config import ILQRConfig
 from ilqr_tpu_torch.models.rbd.urdf import JointSpec, LinkSpec, Mechanism
 from ilqr_tpu_torch.models.two_link import TwoLinkParams
 from ilqr_tpu_torch.precision import resolve_device
-from ilqr_tpu_torch.solver import SolverResult
 from ilqr_tpu_torch.step import StepState
 
 LOCAL_MODEL_NAMES = ("As", "Bs", "qx", "ru", "Qxx", "Pux", "Ruu", "qxN", "QN")
@@ -95,7 +95,11 @@ def step_state_to_numpy(state: StepState) -> dict:
     return {k: _to_numpy(v) for k, v in state._asdict().items()}
 
 
-def result_to_numpy(result: SolverResult) -> dict:
+def result_to_numpy(result) -> dict:
+    """Any result namedtuple of either package — ``SolverResult``,
+    ``BackwardResult``, ``ForwardResult``, ``MPCResult`` — as a dict of
+    numpy arrays by field name."""
+
     return {k: _to_numpy(v) for k, v in result._asdict().items()}
 
 

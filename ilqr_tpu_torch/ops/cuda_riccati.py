@@ -1,7 +1,8 @@
 """The fused backward Riccati recursion: CUDA kernel, wrapper, plain version.
 
-Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (batch-last entry
-``riccati_scan_pallas_bl``).  The kernel is written by hand for ``sm_90a``
+Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (its batch-last entry
+``riccati_scan_pallas_bl`` and its batch-first entry
+``riccati_scan_pallas_batched``).  The kernel is written by hand for ``sm_90a``
 in two designs — ``csrc/riccati.cu``, one thread a lane, for ``(n, m) =
 (4, 2)``; ``csrc/riccati_wide.cu``, a lane spread over two warps with its
 matrices in shared memory, for ``(16, 8)`` and ``(24, 12)`` — built
@@ -12,15 +13,21 @@ It has no gradient (the JAX kernel has none either), so there is no
 * :func:`riccati_scan_cuda_bl` — the wrapper.  On CUDA tensors it launches
   the kernel or raises; on CPU tensors it takes the plain version.  It
   never falls back from one to the other.
-* :func:`riccati_scan_plain_bl` — the same algebra step by step in PyTorch
-  (Python loop over ``t``, one ``rsqrt`` per Cholesky pivot as in the
-  kernel).  The CPU tests use it and the card check holds the kernel
-  against it.
+* :func:`riccati_scan_cuda_batched` — the batch-first entry (counterpart of
+  ``riccati_scan_pallas_batched``, which the per-scenario solver reaches
+  when it is batched): ``[B, T, ...]`` inputs are made batch-last and
+  contiguous, the same kernel runs, and the outputs are handed back
+  batch-first.  Its launches are counted apart
+  (:data:`batched_launch_counts`).
+* :func:`riccati_scan_plain_bl`, :func:`riccati_scan_plain_batched` — the
+  same algebra step by step in PyTorch (Python loop over ``t``, one
+  ``rsqrt`` per Cholesky pivot as in the kernel).  The CPU tests use them
+  and the card check holds the kernel against them.
 * :func:`riccati_loop_bl` — the loop both the plain version and
   ``batched.riccati_bl_scan`` (``sqrt`` then divide, the ``"scan"``
   backend) run; they differ only in the factorization they hand it.
 
-Shapes, all batch-last: ``As [T,n,n,B] Bs [T,n,m,B] qx [T,n,B] ru [T,m,B]
+Shapes of the batch-last entry: ``As [T,n,n,B] Bs [T,n,m,B] qx [T,n,B] ru [T,m,B]
 Qxx [T,n,n,B] Pux [T,m,n,B] Ruu [T,m,m,B] qxN [n,B] QN [n,n,B]``, ``reg``
 scalar or ``[B]``; returns ``(duffs [T,m,B], Ks [T,m,n,B], dv1 [B],
 dv2 [B])`` with ``dv1 = sum_t duff.g`` and ``dv2 = 1/2 sum_t duff.H.duff``.
@@ -58,20 +65,23 @@ LIBRARY: Dict[str, str] = {
     for key, name in KERNELS.items()
 }
 
-# Launches per kernel name: one is added where the wrapper launches the
-# kernel, and nowhere else.
+# Launches per kernel name: one is added where a wrapper launches the
+# kernel, and nowhere else — by the batch-last entry to ``launch_counts``,
+# by the batch-first entry to ``batched_launch_counts``.
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS.values()}
+batched_launch_counts: Dict[str, int] = {name: 0 for name in KERNELS.values()}
 
 
 def launches() -> int:
-    """Total kernel launches made by :func:`riccati_scan_cuda_bl`."""
+    """Total kernel launches made by both entries."""
 
-    return sum(launch_counts.values())
+    return sum(launch_counts.values()) + sum(batched_launch_counts.values())
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, batched_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
@@ -120,25 +130,14 @@ def _check_shapes(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN):
     return T, n, m, B
 
 
-def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
-                         symmetrize: bool = True):
-    """The whole backward recursion of a batch in one kernel launch.
+def _launch(arrays, reg, symmetrize):
+    """Launch the kernel on contiguous batch-last CUDA ``arrays``; returns
+    ``(launcher name, (duffs, Ks, dv1, dv2))``."""
 
-    CUDA tensors: launches the kernel for ``(n, m)`` on the current stream (no
-    synchronize) or raises — on a missing ``(n, m)`` instantiation
-    (``NotImplementedError``), on a wrong device, dtype, shape or a
-    non-contiguous input, on a failed build, on a refused launch.  CPU
-    tensors: :func:`riccati_scan_plain_bl`.
-    """
-
-    arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
+    As = arrays[0]
     T, n, m, B = _check_shapes(*arrays)
     if any(x.device != As.device or x.dtype != As.dtype for x in arrays):
         raise ValueError("all inputs must share one device and one dtype")
-
-    if As.device.type == "cpu":
-        # Any (n, m): the plain version is not instantiated.
-        return riccati_scan_plain_bl(*arrays, reg, symmetrize=symmetrize)
     if As.device.type != "cuda":
         raise ValueError(f"unsupported device {As.device}")
     name = kernel_name(n, m, As.dtype)
@@ -161,8 +160,75 @@ def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
                  dv2.data_ptr(), T, B, int(bool(symmetrize)), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    return name, (duffs, Ks, dv1, dv2)
+
+
+def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                         symmetrize: bool = True):
+    """The whole backward recursion of a batch in one kernel launch.
+
+    CUDA tensors: launches the kernel for ``(n, m)`` on the current stream (no
+    synchronize) or raises — on a missing ``(n, m)`` instantiation
+    (``NotImplementedError``), on a wrong device, dtype, shape or a
+    non-contiguous input, on a failed build, on a refused launch.  CPU
+    tensors: :func:`riccati_scan_plain_bl`.
+    """
+
+    arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
+    _check_shapes(*arrays)
+    if any(x.device != As.device or x.dtype != As.dtype for x in arrays):
+        raise ValueError("all inputs must share one device and one dtype")
+    if As.device.type == "cpu":
+        # Any (n, m): the plain version is not instantiated.
+        return riccati_scan_plain_bl(*arrays, reg, symmetrize=symmetrize)
+    name, outs = _launch(arrays, reg, symmetrize)
     launch_counts[name] += 1
-    return duffs, Ks, dv1, dv2
+    return outs
+
+
+def to_batch_last(arrays):
+    """Batch-first inputs ``[B, T, ...]`` / ``[B, ...]`` as contiguous
+    batch-last tensors ``[T, ..., B]``: one copy of every input."""
+
+    return tuple(x.movedim(0, -1).contiguous() for x in arrays)
+
+
+def from_batch_last(outs):
+    """The recursion's batch-last outputs ``(duffs [T,m,B], Ks [T,m,n,B],
+    dv1 [B], dv2 [B])`` as batch-first views ``([B,T,m], [B,T,m,n], [B],
+    [B])``, without a copy (a step's ``[B, m]`` slice of such a view reads
+    consecutive lanes from consecutive addresses)."""
+
+    duffs, Ks, dv1, dv2 = outs
+    return duffs.movedim(-1, 0), Ks.movedim(-1, 0), dv1, dv2
+
+
+def riccati_scan_cuda_batched(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                              symmetrize: bool = True):
+    """The batch-first entry: the same recursion on ``As [B, T, n, n]``,
+    ``Bs [B, T, n, m]``, ``qx [B, T, n]``, ``ru [B, T, m]``, ``Qxx [B, T,
+    n, n]``, ``Pux [B, T, m, n]``, ``Ruu [B, T, m, m]``, ``qxN [B, n]``,
+    ``QN [B, n, n]``, ``reg`` scalar or ``[B]``; returns ``(duffs [B, T,
+    m], Ks [B, T, m, n], dv1 [B], dv2 [B])``.
+
+    A layout wrapper, as the JAX entry is: the inputs are copied batch-last
+    (:func:`to_batch_last`; the kernel never reads batch-first memory, where
+    neighbouring lanes lie ``T n n`` values apart and no load would
+    coalesce), the kernel of :func:`riccati_scan_cuda_bl` runs, and the
+    outputs come back as batch-first views.  Unlike the JAX entry, the batch
+    is not padded.  CUDA tensors: launches or raises, as the batch-last
+    wrapper does; CPU tensors: :func:`riccati_scan_plain_batched`.
+    """
+
+    arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
+    if any(x.ndim < 2 or x.shape[0] != As.shape[0] for x in arrays):
+        raise ValueError("inputs must share one leading batch axis "
+                         f"(batch-first), got {[tuple(x.shape) for x in arrays]}")
+    if As.device.type == "cpu":
+        return riccati_scan_plain_batched(*arrays, reg, symmetrize=symmetrize)
+    name, outs = _launch(to_batch_last(arrays), reg, symmetrize)
+    batched_launch_counts[name] += 1
+    return from_batch_last(outs)
 
 
 def riccati_loop_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
@@ -215,3 +281,13 @@ def riccati_scan_plain_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
 
     return riccati_loop_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
                            symmetrize, _gains_rsqrt)
+
+
+def riccati_scan_plain_batched(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
+                               symmetrize: bool = True):
+    """The batch-first entry's plain version: the same layout moves around
+    :func:`riccati_scan_plain_bl`."""
+
+    arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
+    return from_batch_last(riccati_scan_plain_bl(
+        *to_batch_last(arrays), reg, symmetrize=symmetrize))

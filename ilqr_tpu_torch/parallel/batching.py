@@ -18,7 +18,9 @@ from ilqr_tpu_torch.batched import batched_solve_fused, rollout_bl
 from ilqr_tpu_torch.config import DEFAULT_CONFIG, ILQRConfig, Status
 from ilqr_tpu_torch.precision import resolve_device
 from ilqr_tpu_torch.problem import Problem
-from ilqr_tpu_torch.solver import SolverResult
+from ilqr_tpu_torch.solver import SolverResult, solve
+
+ENGINES = ("fused", "vmap")
 
 
 def batch_solve(problem: Problem, x0s: torch.Tensor, us0: torch.Tensor,
@@ -33,22 +35,31 @@ def batch_solve(problem: Problem, x0s: torch.Tensor, us0: torch.Tensor,
     starts).  Returns a ``SolverResult`` with a leading batch axis on every
     field, on ``device`` (default: the card).
 
-    ``engine``: ``"fused"`` — the batch-last engine
-    (``ilqr_tpu_torch.batched``), with the fused CUDA Riccati kernel when
-    ``config.backward_backend == "pallas"``.  The JAX package's ``"vmap"``
-    engine (vmap of the per-scenario solver) is not ported and raises.
+    ``engine``:
+
+    * ``"fused"`` (the port's default) — the batch-last engine
+      (``ilqr_tpu_torch.batched``), with the fused CUDA Riccati kernel when
+      ``config.backward_backend == "pallas"``;
+    * ``"vmap"`` (the JAX package's default) — the per-scenario solver
+      (:func:`ilqr_tpu_torch.solver.solve`) on the ``[B, ...]`` inputs, its
+      ``jax.vmap`` written out as a leading batch axis; with ``"pallas"``
+      its backward pass launches the kernel's batch-first entry.
+
+    The two give the same results (the JAX package's
+    ``tests/test_batched_fused.py``; here ``tests/test_torch_solver.py``).
     """
 
-    if engine != "fused":
+    if engine not in ENGINES:
         raise NotImplementedError(
-            f"engine={engine!r} is not ported: ilqr_tpu_torch has the "
-            "'fused' batch-last engine only")
+            f"engine={engine!r} is not ported: ilqr_tpu_torch has {ENGINES}")
 
     device = resolve_device(device)
     x0s, us0 = x0s.to(device), us0.to(device)
     if warm_xs is None:
         warm_xs = rollout_bl(problem, x0s.movedim(0, -1),
                              us0.movedim(0, -1)).movedim(-1, 0)
+    if engine == "vmap":
+        return solve(problem, warm_xs, us0, x_refs, config, device=device)
     assert x_refs is None or x_refs.ndim == warm_xs.ndim
     return batched_solve_fused(problem, warm_xs, us0, x_refs, config,
                                device=device)
@@ -56,8 +67,9 @@ def batch_solve(problem: Problem, x0s: torch.Tensor, us0: torch.Tensor,
 
 def make_batch_solver(problem: Problem, config: ILQRConfig = DEFAULT_CONFIG,
                       engine: str = "fused", device=None):
-    """``(x0s, us0) -> SolverResult`` batched solver on ``device`` (default:
-    the card).  Inputs may live anywhere; they are moved."""
+    """``(x0s, us0) -> SolverResult`` batched solver with ``engine`` (see
+    :func:`batch_solve`) on ``device`` (default: the card).  Inputs may live
+    anywhere; they are moved."""
 
     device = resolve_device(device)
 

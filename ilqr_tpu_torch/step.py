@@ -243,3 +243,40 @@ def finalize_status(status):
 
     return torch.where(status == int(Status.RUNNING), int(Status.MAX_ITER),
                        status)
+
+
+def lane_where(mask, new, old):
+    """Per-lane ``where`` of the per-scenario layout: ``mask [*L]`` broadcast
+    over the trailing axes of ``new`` (``[*L]``, ``[*L, T, m]``, ...)."""
+
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - mask.ndim)),
+                       new, old)
+
+
+def make_scalar_engine(problem, x_ref, config: ILQRConfig) -> StepEngine:
+    """The per-scenario engine.  Every lane-shaped value has the leading
+    batch shape ``[*L]`` (``()`` for one scenario) and trajectories are
+    ``[*L, T+1, n]`` / ``[*L, T, m]``: the port's written-out ``jax.vmap``
+    of the JAX engine."""
+
+    from ilqr_tpu_torch.backward import backward_pass
+    from ilqr_tpu_torch.forward import forward_pass
+
+    def backward(xs, us, reg):
+        b = backward_pass(problem, xs, us, config, reg=reg)
+        return b.duffs, b.Ks, b.dV1, b.dV2
+
+    def forward(xs, us, duffs, Ks, prev_cost, active, dV1, dV2,
+                alpha_init=None):
+        f = forward_pass(problem, xs, us, duffs, Ks, prev_cost, x_ref,
+                         config, active=active, dV1=dV1, dV2=dV2,
+                         alpha_init=alpha_init)
+        return f.xs, f.us, f.cost, f.accepted, f.alpha, f.backtracks
+
+    return StepEngine(
+        backward=backward,
+        forward=forward,
+        du_sq=lambda a, b: torch.sum((a - b) ** 2, dim=(-2, -1)),
+        select=torch.where,
+        select_traj=lane_where,
+    )

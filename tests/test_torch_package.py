@@ -151,12 +151,23 @@ def test_unported_flags_raise_and_name_the_flag(flag):
 
 def test_unported_engine_and_backend_raise():
     problem = make_two_link_problem()
-    x0s = torch.zeros((2, 4), dtype=torch.float64)
-    us0 = torch.zeros((2, 3, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="vmap"):
-        batch_solve(problem, x0s, us0, engine="vmap", device="cpu")
-    with pytest.raises(NotImplementedError, match="vmap"):
-        make_batch_solver(problem, engine="vmap", device="cpu")(x0s, us0)
+    g = torch.Generator().manual_seed(3)
+    x0s = 0.3 * torch.randn((2, 4), generator=g, dtype=torch.float64)
+    us0 = 0.1 * torch.randn((2, 3, 2), generator=g, dtype=torch.float64)
+    cfg = ILQRConfig(max_iter=5)
+    # engine="vmap" is ported: the per-scenario solver on the batch agrees
+    # with the fused engine.
+    fused = batch_solve(problem, x0s, us0, config=cfg, engine="fused",
+                        device="cpu")
+    for vmap in (batch_solve(problem, x0s, us0, config=cfg, engine="vmap",
+                             device="cpu"),
+                 make_batch_solver(problem, cfg, engine="vmap",
+                                   device="cpu")(x0s, us0)):
+        assert torch.equal(vmap.status, fused.status)
+        assert torch.equal(vmap.iterations, fused.iterations)
+        torch.testing.assert_close(vmap.us, fused.us, rtol=1e-10, atol=1e-12)
+    with pytest.raises(NotImplementedError, match="no_such"):
+        batch_solve(problem, x0s, us0, engine="no_such", device="cpu")
     with pytest.raises(NotImplementedError, match="no_such"):
         riccati_bl(*[None] * 9, reg=0.0,
                    config=ILQRConfig(backward_backend="no_such"))

@@ -23,6 +23,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ilqr_tpu.models.rbd import model as jmodel
 from ilqr_tpu_torch import batched as tb
+from ilqr_tpu_torch.derivatives import jacobians_trailing
 from ilqr_tpu_torch.models.rbd import model as tmodel
 from ilqr_tpu_torch.models.rbd.urdf import parse_urdf
 from tests.torch_parity import to_numpy, to_torch
@@ -81,7 +82,7 @@ def test_dynamics_jacobians_against_forward_mode_ad(reference_kinematics):
         reference_kinematics=reference_kinematics)
     x, u = map(to_torch, states(2, 2))
     A, B = tp.dynamics_jacobians(x, u)
-    A_ad, B_ad = tb._jacobians_trailing(tp.dynamics)(x, u)
+    A_ad, B_ad = jacobians_trailing(tp.dynamics)(x, u)
     close(A, A_ad, 1e-9, 1e-11)
     close(B, B_ad, 1e-9, 1e-11)
     # The same through derivatives_bl with the hook taken away.
@@ -211,7 +212,7 @@ def test_replay_and_ad_forms_match_the_explicit_sweep(which):
             analytic_derivatives=analytic_derivatives, **kw)
         assert ad.dynamics_jacobians is None and ad.batch_trailing
         assert torch.equal(ad.dynamics(x, u), explicit.dynamics(x, u))
-        Aa, Ba = tb._jacobians_trailing(ad.dynamics)(x, u)
+        Aa, Ba = jacobians_trailing(ad.dynamics)(x, u)
         close(Aa, A, 1e-9, 1e-11)
         close(Ba, B, 1e-9, 1e-11)
 
