@@ -12,7 +12,9 @@ Phases, one JSON line each:
 
 1. ``device``   the card as ``nvidia-smi`` names it, torch and CUDA versions.
 2. ``build``    ``nvcc`` builds ``ilqr_tpu_torch/ops/csrc/*.cu`` from the
-                checkout (seconds), registers per kernel from ``ptxas``.
+                checkout, each also with ``-DRICCATI_STAGE_CLOCKS`` (four
+                ``nvcc`` at once, seconds), registers per kernel from
+                ``ptxas``.
 3. ``kernels``  the one-thread-a-lane Riccati kernel, ``(n, m) = (4, 2)``,
                 against its plain PyTorch version on
                 the card, on local models from ``derivatives_bl`` at a rolled
@@ -20,7 +22,8 @@ Phases, one JSON line each:
                 float64 at the main path's B=4096, T=100, float32 at a ragged
                 B=4099, ``symmetrize`` on and off, scalar and per-lane
                 ``reg``; then the kernel's time beside its bound and the
-                plain version's time.
+                plain version's time, and the float32 kernel's cycles a
+                step by stage (the stage-clock build).
 4. ``parity``   a small float64 solve on the card (kernel) against the same
                 solve on the CPU (plain version): same status and
                 iterations, ``us`` to rtol 1e-8.
@@ -40,10 +43,14 @@ Phases, one JSON line each:
                 ``(24, 12)`` against the plain version, on local models of
                 the floating-base arms: float64 at B=64, T=24 (rtol 1e-10,
                 ``symmetrize`` on and off, scalar and per-lane ``reg``) and
-                at the ragged B=257 and B=67; float32 and float64 at the
+                at the ragged B=257 and B=67 and float32 at B=65 (these take
+                the kernel's per-element copy path, the others TMA; the
+                path of each check is printed); float32 and float64 at the
                 second main path's B=256, T=1000 (and B=64, T=50 for the
                 6-DoF arm), float32 also against a float64 run of the same
-                inputs; then the times, and one whole pass at that depth
+                inputs; then the times (also at the cut solve's T=100), the
+                ``(16, 8)`` float32 cycles a step by stage, and one whole
+                pass at that depth
                 from the same iterate: ``derivatives_bl``, the kernel, and a
                 ``forward_pass_bl`` whose ladder is capped at three rungs.
 7. ``rbd_solve``    the second main path, what ``bench.py --config rbd`` runs
@@ -74,8 +81,14 @@ Phases, one JSON line each:
                 B=4096 T=100, (16, 8) B=256 T=100, (24, 12) B=64 T=50, both
                 types): equal (``torch.equal``) to the batch-last entry on
                 the transposed inputs, within the bounds above of the plain
-                version, then the times of the kernel, of its layout copies
-                and of the whole entry.
+                version, contiguous outputs, no device memory allocated
+                beyond them; then the entry's time beside the batch-last
+                kernel's (there is no layout copy left to time).  Then the
+                wide kernel's batch-first read at ragged batches, T=24, both
+                types: (24, 12) B=67 and (16, 8) B=65 on TMA (the last box
+                runs past B), (16, 8) B=1 on the per-element path, held the
+                same way (float64 elementwise), each launch's copy path
+                printed as its library reports it.
 11. ``vmap_solve``  the third path: the per-scenario solver on a leading
                 batch axis, ``make_batch_solver(engine="vmap")``, at phase
                 ``solve``'s width and config; the batch-first launches are
@@ -141,7 +154,10 @@ def emit(**kw):
 
 
 def sync_time(fn, reps):
-    """Median milliseconds of ``fn()`` by CUDA events, after one warm call."""
+    """Median milliseconds of ``fn()`` by CUDA events around one call at a
+    time, after one warm call: where the host takes longer to issue the call
+    than the card to run it, the host's time (the kernels' ``call_ms``; their
+    ``ms`` is ``device_time``)."""
 
     fn()
     torch.cuda.synchronize()
@@ -155,6 +171,37 @@ def sync_time(fn, reps):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+# The device's time for a kernel is taken behind a sleep: the calls are
+# queued while the card sleeps, so the host's time to issue them (the
+# wrapper's checks, allocations and the ctypes call, tens to hundreds of
+# microseconds) is not counted.  50 M cycles are at least 25 ms at the
+# card's clock of at most 1980 MHz.
+SLEEP_CYCLES = 50_000_000
+SLEEP_MIN_S = SLEEP_CYCLES / 1.98e9
+
+
+def device_time(fn, reps):
+    """Milliseconds of device time a call of ``fn``: CUDA events around
+    ``reps`` calls queued behind a sleep, after one warm call.  Raises if
+    issuing them took the host longer than the sleep lasts."""
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert host_s < SLEEP_MIN_S, (
+        f"issuing {reps} calls took {host_s} s, more than the sleep")
+    return a.elapsed_time(b) / reps
 
 
 def scenario_inputs(B, T, dtype, seed, device):
@@ -206,6 +253,15 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def last_copy_path():
+    """The copy path the last kernel launch took, as its library reported
+    it."""
+
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    return cuda_riccati.last_launch["copy_path"]
+
+
 def check_kernel(models, reg, symmetrize):
     """Kernel against plain version on the same inputs on the card.
 
@@ -240,7 +296,8 @@ def check_kernel(models, reg, symmetrize):
 def phase_kernels(problem, device):
     from ilqr_tpu_torch.ops.cuda_riccati import (kernel_name,
                                                  riccati_scan_cuda_bl,
-                                                 riccati_scan_plain_bl)
+                                                 riccati_scan_plain_bl,
+                                                 riccati_stage_clocks)
 
     # float64, small, at the bar of the JAX package's own kernel test.
     m64 = local_models(problem, 256, 24, torch.float64, 10, device)
@@ -275,11 +332,17 @@ def phase_kernels(problem, device):
                                      for k, t in zip(kern, truth)),
                 "plain_vs_f64": max(rel_err(p.double(), t)
                                     for p, t in zip(plain, truth))}
-        ms = sync_time(lambda: riccati_scan_cuda_bl(*models, reg), 30)
+        ms = device_time(lambda: riccati_scan_cuda_bl(*models, reg), 30)
+        call_ms = sync_time(lambda: riccati_scan_cuda_bl(*models, reg), 30)
+        path = last_copy_path()
         plain_ms = sync_time(lambda: riccati_scan_plain_bl(*models, reg), 3)
         bound_ms, bound_by = riccati_bound_ms(T, B, dtype)
+        if dtype == torch.float32:
+            vs_truth["stage_cycles_per_step"] = riccati_stage_clocks(
+                models, reg)
         rows[kernel_name(N, M, dtype)] = dict(
-            max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+            max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, call_ms=call_ms,
+            copy_path=path,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, **vs_truth)
     emit(phase="kernels", kernels=sorted(rows),
@@ -669,25 +732,33 @@ def time_forward_pass(problem, xs, us, gains, config):
 def phase_rbd_kernels(cases, device):
     from ilqr_tpu_torch.ops.cuda_riccati import (kernel_name,
                                                  riccati_scan_cuda_bl,
-                                                 riccati_scan_plain_bl)
+                                                 riccati_scan_plain_bl,
+                                                 riccati_stage_clocks)
 
-    rows, small, one_pass = {}, {}, {}
+    rows, small, one_pass, paths, stage = {}, {}, {}, {}, {}
     for tag, case, full in (("16x8", cases[False], RBD),
                             ("24x12", cases[True], SIX)):
         n, m = case[0].state_dim, case[0].control_dim
 
-        # float64, small, the four flag combinations; then the ragged sizes.
+        # float64, small, the four flag combinations; then the ragged sizes,
+        # which take the per-element copy path (B * 8 bytes is no multiple
+        # of 16), and B=65 in float32 (B * 4 bytes neither).
         errs = []
-        for B in (64, 257, 67):
+        for B, dtype in ((64, torch.float64), (257, torch.float64),
+                         (67, torch.float64), (65, torch.float32)):
             models = rbd_local_models(case, B, 24, torch.float64, 50 + B,
                                       device)[0]
-            reg_lane = torch.logspace(-3, 0, B, dtype=torch.float64,
-                                      device=device)
+            models = tuple(x.to(dtype) for x in models)
+            reg_lane = torch.logspace(-3, 0, B, dtype=dtype, device=device)
             combos = ([(r, s) for r in (1.0, reg_lane) for s in (True, False)]
                       if B == 64 else [(reg_lane, True)])
+            if dtype == torch.float32:
+                combos = [(1.0, True)]   # the main path's reg, float32
             errs.append(max(check_kernel(models, r, s)[0]
                             for r, s in combos))
-        small[tag] = dict(zip(("B64_T24", "B257_T24", "B67_T24"), errs))
+            paths[f"{tag}_B{B}_{str(dtype)[6:]}"] = last_copy_path()
+        small[tag] = dict(zip(("B64_T24", "B257_T24", "B67_T24",
+                               "B65_T24_float32"), errs))
 
         # The main path's shapes: error, time, bound, both instantiations.
         # The plain version takes seconds here (thousands of launches a
@@ -729,12 +800,28 @@ def phase_rbd_kernels(cases, device):
                 assert k64 <= max(KERNEL_VS_PLAIN_SLACK * p64, 1e-6), (k64,
                                                                        p64)
                 vs_truth = {"kernel_vs_f64": k64, "plain_vs_f64": p64}
-            ms = sync_time(lambda: riccati_scan_cuda_bl(*models, reg), 30)
+            ms = device_time(lambda: riccati_scan_cuda_bl(*models, reg), 30)
+            call_ms = sync_time(lambda: riccati_scan_cuda_bl(*models, reg), 30)
             bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
+            paths[f"{tag}_B{B}_{str(dtype)[6:]}"] = last_copy_path()
+            extra = {}
+            if T > RBD["T_cut"]:
+                # The depth the cut RBD solve launches the kernel at.
+                cut = tuple(x[:RBD["T_cut"]] for x in models[:7]) + models[7:]
+                extra = dict(
+                    T_cut=RBD["T_cut"],
+                    ms_T_cut=device_time(
+                        lambda: riccati_scan_cuda_bl(*cut, reg), 30),
+                    bound_ms_T_cut=riccati_bound_ms(RBD["T_cut"], B, dtype,
+                                                    n, m)[0])
+                del cut
+            if dtype == torch.float32 and full is RBD:
+                stage[kernel_name(n, m, dtype)] = riccati_stage_clocks(
+                    models, reg)
             rows[kernel_name(n, m, dtype)] = dict(
                 B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                plain_ms=plain_ms[dtype], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, **vs_truth)
+                call_ms=call_ms, plain_ms=plain_ms[dtype], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, **extra, **vs_truth)
             if dtype == torch.float32:
                 one_pass[tag]["riccati_s"] = ms / 1e3
                 if full is RBD:
@@ -745,6 +832,7 @@ def phase_rbd_kernels(cases, device):
     emit(phase="rbd_kernels", kernels=sorted(rows), f64_rtol=1e-10,
          f64_rel_bound_at_main_path_shapes=F64_REL_BOUND_RBD,
          f64_max_abs_err=small, f32_rel_bound=F32_REL_BOUND_RBD,
+         copy_paths=paths, stage_cycles_per_step=stage,
          kernel_vs_plain_slack=KERNEL_VS_PLAIN_SLACK,
          at_main_path_shapes=rows, one_pass_float32_s=one_pass)
     return rows, one_pass["16x8"]
@@ -1014,6 +1102,12 @@ BATCH_FIRST_ENTRY = "ilqr_tpu_torch/ops/cuda_riccati.py::riccati_scan_cuda_batch
 # The batch-first entry at each instantiation: (n, m), B, T.
 BATCH_FIRST_SHAPES = (((4, 2), 4096, 100), ((16, 8), 256, 100),
                       ((24, 12), 64, 50))
+# Ragged batches of the wide kernel's batch-first read, T=24: an odd B on
+# TMA, whose last block's box of two lanes runs one lane past B, and B=1,
+# fewer lanes than a box, on the per-element path (a single leading axis
+# of the per-scenario solver sends B=1); batch-last, each of these widths
+# takes the per-element path.
+RAGGED_BATCH_FIRST = (((24, 12), 67), ((16, 8), 65), ((16, 8), 1))
 # Seconds the float32 vmap solve may take over its two runs: caps max_iter
 # from the time of its first pass, as SOLVE_BUDGET_S does.
 VMAP_BUDGET_S = 60.0
@@ -1046,10 +1140,15 @@ def batch_first_models(problem_or_case, n, B, T, dtype, device):
 
 def phase_batched_entry(problem, cases, device):
     """``riccati_scan_cuda_batched`` at each instantiation: equal to the
-    batch-last entry on the transposed inputs (the same kernel, so
-    ``torch.equal``), within the bounds of the kernel checks of the plain
-    version, then the times of the kernel, of the entry and of its layout
-    copies."""
+    batch-last entry on the transposed inputs (the same arithmetic a lane in
+    both layouts, so ``torch.equal``), within the bounds of the kernel checks
+    of the plain version, contiguous outputs, and no device memory allocated
+    beyond its outputs; then the time of the entry beside the batch-last
+    kernel's.  The entry copies no layout (the kernels read ``[B, T, ...]``
+    in place), so there is no copy to time.  Then the wide kernel at the
+    ragged batches of ``RAGGED_BATCH_FIRST``, both types, held the same way
+    (float64 elementwise, as ``check_kernel``), with the copy path each
+    launch reports."""
 
     from ilqr_tpu_torch.ops.cuda_riccati import (from_batch_last,
                                                  kernel_name,
@@ -1079,11 +1178,25 @@ def phase_batched_entry(problem, cases, device):
                 bound = 1e-10
             else:
                 bound = F32_REL_BOUND if n == N else F32_REL_BOUND_RBD
+            # One more call: the device memory it asks for beyond what was
+            # allocated before, against its outputs.  Bytes as requested:
+            # the allocator may hand out a cached block somewhat larger.
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            key = "requested_bytes.all"
+            before = torch.cuda.memory_stats()[f"{key}.current"]
+            outs = riccati_scan_cuda_batched(*bf, reg)
+            torch.cuda.synchronize()
+            extra = torch.cuda.memory_stats()[f"{key}.peak"] - before
+            out_bytes = sum(x.numel() * x.element_size() for x in outs)
+            assert extra <= out_bytes, ((n, m), str(dtype), extra, out_bytes)
+            del outs
             max_abs, max_rel = 0.0, 0.0
             for name, g, e, p in zip(("duffs", "Ks", "dv1", "dv2"), got,
                                      same, plain):
                 assert g.shape == p.shape and g.dtype == p.dtype, name
                 assert g.shape[0] == B, (name, g.shape)
+                assert g.is_contiguous(), name
                 assert torch.equal(g, e), f"{name}: batch-first != batch-last"
                 assert bool(torch.isfinite(g).all()), f"{name}: not finite"
                 r = rel_err(g, p)
@@ -1094,18 +1207,61 @@ def phase_batched_entry(problem, cases, device):
             rows[kernel_name(n, m, dtype)] = dict(
                 n=n, m=m, B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel,
                 rel_bound=bound, equal_to_batch_last=True,
-                ms=sync_time(lambda: riccati_scan_cuda_bl(*bl, reg), 30),
-                transpose_ms=sync_time(lambda: to_batch_last(bf), 30),
-                entry_ms=sync_time(lambda: riccati_scan_cuda_batched(*bf, reg),
-                                   30),
+                allocated_bytes=extra, output_bytes=out_bytes,
+                ms=device_time(lambda: riccati_scan_cuda_batched(*bf, reg),
+                               30),
+                call_ms=sync_time(lambda: riccati_scan_cuda_batched(*bf, reg),
+                                  30),
+                batch_last_ms=device_time(
+                    lambda: riccati_scan_cuda_bl(*bl, reg), 30),
+                layout_copies="none",
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
             del got, same, plain, bl, bf
         del m32
+
+    ragged = {}
+    for (n, m), B in RAGGED_BATCH_FIRST:
+        m32 = batch_first_models(cases[n == 24], n, B, 24, torch.float32,
+                                 device)
+        for dtype in (torch.float32, torch.float64):
+            bf = tuple(x.to(dtype) for x in m32)
+            reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
+            got = riccati_scan_cuda_batched(*bf, reg)
+            path_bf = last_copy_path()
+            same = from_batch_last(riccati_scan_cuda_bl(*to_batch_last(bf),
+                                                        reg))
+            path_bl = last_copy_path()
+            plain = riccati_scan_plain_batched(*bf, reg)
+            torch.cuda.synchronize()
+            assert path_bf == ("tma" if B >= 2 else "per_element"), path_bf
+            assert path_bl == "per_element", path_bl
+            max_abs, max_rel = 0.0, 0.0
+            for name, g, e, p in zip(("duffs", "Ks", "dv1", "dv2"), got,
+                                     same, plain):
+                assert g.shape == p.shape and g.shape[0] == B, name
+                assert g.is_contiguous(), name
+                assert torch.equal(g, e), f"{name}: batch-first != batch-last"
+                assert bool(torch.isfinite(g).all()), f"{name}: not finite"
+                r = rel_err(g, p)
+                if dtype == torch.float64:
+                    rtol, atol = (1e-10, 1e-12) if g.ndim > 1 else (1e-9, 0.0)
+                    torch.testing.assert_close(g, p, rtol=rtol, atol=atol,
+                                               msg=lambda s: f"{name}: {s}")
+                else:
+                    assert r <= F32_REL_BOUND_RBD, ((n, m), B, name, r)
+                max_abs = max(max_abs, float((g - p).abs().max()))
+                max_rel = max(max_rel, r)
+            ragged[f"{n}x{m}_B{B}_T24_{str(dtype)[6:]}"] = dict(
+                copy_path_batch_first=path_bf, copy_path_batch_last=path_bl,
+                equal_to_batch_last=True, max_abs_err=max_abs,
+                max_rel_err=max_rel)
+            del got, same, plain, bf
+        del m32
     emit(phase="batched_entry", entry=BATCH_FIRST_ENTRY,
-         outputs="batch-first views of the kernel's outputs, no copy",
+         outputs="contiguous batch-first, written by the kernel",
          f64_rel_bound=1e-10, f32_rel_bound=F32_REL_BOUND,
-         f32_rel_bound_wide=F32_REL_BOUND_RBD, rows=rows)
+         f32_rel_bound_wide=F32_REL_BOUND_RBD, rows=rows, ragged=ragged)
     return rows
 
 
@@ -1381,11 +1537,13 @@ def main():
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
     t0 = time.perf_counter()
-    _build.build()
+    # Every source and its stage-clock build, one nvcc each, all together.
+    _build.build(_build.SOURCES + tuple(_build.VARIANTS))
     for name in _build.SOURCES:
         _build.load(name)
     emit(phase="build", seconds=time.perf_counter() - t0,
          sources=[f"ilqr_tpu_torch/ops/csrc/{n}.cu" for n in _build.SOURCES],
+         libraries=list(_build.SOURCES) + list(_build.VARIANTS),
          ptxas=ptxas_summary(_build))
 
     problem = make_two_link_problem()
@@ -1430,7 +1588,7 @@ def main():
             name=f"{name}_batch_first", route="cuda", source=sources[name],
             entry=BATCH_FIRST_ENTRY, replaces=BATCH_FIRST_REPLACES,
             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
-            transpose_ms=row["transpose_ms"], entry_ms=row["entry_ms"],
+            batch_last_ms=row["batch_last_ms"], layout_copies="none",
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

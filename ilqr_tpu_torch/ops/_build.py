@@ -9,7 +9,10 @@ that take raw device pointers and a stream), so it compiles in seconds with
          csrc/<name>.cu
 
 :func:`build` starts one ``nvcc`` per source, all together, and waits for
-them.
+them.  Each source also has a stage-clock build, ``<name>_clocks``: the same
+file with ``-DRICCATI_STAGE_CLOCKS`` (``clock64()`` counters per stage of a
+step, see the sources), loaded only by ``cuda_riccati.riccati_stage_clocks``
+and never on the main path.
 
 The library's name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  The build directory
@@ -34,8 +37,16 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 # One shared library per source.
 SOURCES = ("riccati", "riccati_wide")
+# The stage-clock builds: library -> (source, extra nvcc flags).
+VARIANTS = {f"{name}_clocks": (name, ("-DRICCATI_STAGE_CLOCKS",))
+            for name in SOURCES}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _source_and_flags(name: str):
+    source, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{source}.cu", NVCC_FLAGS + extra
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -63,10 +74,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source_and_flags(name)
     h = hashlib.sha256()
     h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -86,7 +97,8 @@ def _start_build(name: str):
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src, flags = _source_and_flags(name)
+    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -115,7 +127,8 @@ def build(names: Iterable[str] = SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library ``name`` (a source of ``csrc/`` or one of
+    :data:`VARIANTS`), built first if needed."""
 
     lib = _loaded.get(name)
     if lib is None:

@@ -1,431 +1,907 @@
 // Fused backward Riccati recursion for the larger models, (N, M) = (16, 8)
-// and (24, 12): one launch for a whole scenario batch, a lane spread over
-// the 64 threads of two warps.
+// and (24, 12): one launch for a whole scenario batch and horizon, a lane
+// spread over the four warps of TPL = 128 threads, two lanes a block, the
+// inputs brought in by the Tensor Memory Accelerator (TMA) through a ring of
+// steps in shared memory.
 //
 // Replaces the same TPU kernel as riccati.cu does at (4, 2):
 // ilqr_tpu/ops/pallas_riccati.py::_riccati_kernel (launched by
-// _riccati_pallas_call, fed by riccati_scan_pallas_bl).  It computes what
-// that kernel computes (the algebra is spelled out at the top of
-// riccati.cu: g, G, H, Cholesky of H + reg I with one rsqrt per pivot, duff,
-// K, the value update with the raw H, dv1, dv2); it is not a copy of its
-// blocks: no padding of the batch, no time blocking, no tile-shape
-// argument.  Layout batch-LAST as there: element e of lane b at e*B + b.
+// _riccati_pallas_call, fed by riccati_scan_pallas_bl and, batch-first, by
+// riccati_scan_pallas_batched).  It computes what that kernel computes (the
+// algebra is spelled out at the top of riccati.cu: g, G, H, Cholesky of
+// H + reg I with one rsqrt per pivot, duff, K, the value update with the raw
+// H, the optional symmetrize, dv1, dv2); it is not a copy of its blocks.
+// Two layouts, chosen by a template argument: batch-LAST (element e of lane
+// b at step t at (t*E + e)*B + b, as the TPU kernel) and batch-FIRST (at
+// (b*T + t)*E + e, the per-scenario solver's), both read in place; a lane's
+// arithmetic is the same code in both, so the two agree bit for bit.
 //
-// Why not riccati.cu's one thread a lane.  At (16, 8) a lane carries 272
-// values and a step needs A, S·A, the next S, G, K, H and L beside them: over
-// a thousand live values, which one thread would keep in local memory, and
-// B = 256 lanes would be 8 warps on a card with 132 SMs.
+// Bound on an H100 (3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores,
+// 67 TFLOP/s float64 on its tensor cores, half of that outside them).  A
+// lane and step reads 2N^2 + 2NM + M^2 + N + M values (856 at (16, 8), 1908
+// at (24, 12)) and writes M + MN (136, 300); at B = 256, T = 1000, float32,
+// (16, 8) that is 1.02 GB, 0.30 ms.  Its arithmetic, about 21.6 k
+// multiply-adds a lane and step, is 0.17 ms.  Bytes bound it.  What holds
+// the kernel above that bound is the dependent chain of a step: T steps
+// follow one another, and a step is a dozen small products, an M-column
+// Cholesky and the products that make the gains, each needing the one
+// before.  The stage clocks (below) say where a step's cycles go.
 //
-// Design.
-//  * A lane is owned by TPL = 64 threads of one block; a block owns LPB = 2
-//    consecutive lanes.  The carry (S, s) and every matrix of a step live
-//    in the lane's region of shared memory (about 13 KB a lane in float32 at
-//    (16, 8), 29 KB at (24, 12)).  Every product is computed here, by the
-//    lane's threads: each thread owns 1x4 tiles of the result and walks the
-//    inner dimension with one scalar and one 16-byte shared-memory load per
-//    four multiply-adds.
-//  * The stages of a step depend on each other (B'S; then G, H and S·A; the
-//    Cholesky, whose M pivots are sequential; the N+1 solves, one column a
-//    thread; H·K; the value update), so the lane's threads meet at a named
-//    barrier (bar.sync lane+1, TPL) between them.  Lanes of a block never
-//    wait for each other inside a step.
-//  * Loads are coalesced ACROSS lanes.  A block that read one lane's element
-//    e at e*B + b would use 4 bytes of each 32-byte sector.  Instead the
-//    whole block copies a step's inputs together: thread i takes element
-//    i / LPB of lane i % LPB, so LPB consecutive lanes make 4*LPB contiguous
-//    bytes.  The copy is asynchronous (cp.async, 4 or 8 bytes each) into one
-//    of two staging buffers: the inputs of step t-1 travel while step t is
-//    computed, and the one __syncthreads() of a step is where they are
-//    handed over.  Gains are written the same way, from a double buffer,
-//    one step late.
-//  * The ragged edge: lanes at or beyond B are not copied (their staging
-//    stays zero, their reg is 1) and not stored.
-//  * Two lanes a block is a compromise for the batches this package sends
-//    (64 to 256 lanes): more lanes a block would read whole sectors but
-//    leave most of the card's 132 SMs without a block.  A wider batch may
-//    want more; that shape belongs with the workload that sends it.
+// Design, each choice against the first version of this kernel (stage
+// clocks and times of both in PERF.md):
+//  * Four barriers a step (bar.sync of the lane's 128 threads), not seven:
+//      1. SA = S A, BtS = B'S, g = ru + B's, ys = qx + A's      [barrier]
+//      2. G = Pux + BtS A, H = Ruu + BtS B                      [barrier]
+//      3. warp 0: the gains; warps 1-3: P = Qxx + A'(SA), then the next
+//         step's inputs out of the ring                         [barrier]
+//      4. S = Sn = P + K'W + G'K, written symmetrized by the owner of each
+//         pair of 2 x 2 blocks; s = ys + K'(H duff + g) + G'duff [barrier]
+//  * Products as register tiles on dense row-major copies: each thread
+//    keeps a 1 x 4 or 2 x 4 tile of the result in registers and reads one
+//    value (or pair) of the left factor and four of the right per step of
+//    the sum, where the first version read two scalars from shared memory
+//    for every multiply-add and so was bound by shared-memory bandwidth.
+//    Each warp of a stage runs one kind of job (job counts are padded to
+//    whole warps), so no warp serializes two code paths.
+//  * The gains in one warp, in registers and without exchanges: every
+//    thread of warp 0 factors H + reg I itself (right-looking, one rsqrt a
+//    pivot, the subtractions in the reference's order), so L is in every
+//    thread's registers; then thread c solves column c of [G | g] by the
+//    reference's substitutions (depth M^2, from registers), and [W | H duff]
+//    = [G | 0] + H [K | duff] is one product of depth M spread over the
+//    warp.  The first version factored in shared memory, one column a round
+//    with a barrier, and solved from shared memory.  A version with the
+//    solves as products with L^-1 was slower (it added two dependent
+//    products to the chain) and rounded differently from the reference
+//    enough to move a float32 solve's worst lane (PERF.md).
+//  * Loads off the chain.  The inputs of a step come in by TMA
+//    (cp.async.bulk.tensor, one box per input) into a ring of RING = 3 steps,
+//    completed on an mbarrier with its byte count; warps 1-3 copy a step out
+//    of the ring into a dense double buffer during stage 3 of the step
+//    before, and one of their threads then refills the slot, once both
+//    lanes of the block have freed it (a second mbarrier).  A batch-last box
+//    is 16 bytes of lanes (4 in float32, 2 in float64: TMA's least inner
+//    box, and it must start on 16 bytes), of which the block's two lanes
+//    use theirs; a batch-first box is the two lanes' contiguous blocks.
+//    Where TMA cannot take a tensor (a batch-last row stride B*sizeof(T)
+//    that is not a multiple of 16 bytes, as at a ragged B, a base address
+//    that is not 16-byte aligned, fewer lanes than a box) the lane's own
+//    threads copy its elements with cp.async into the same places and
+//    complete the same kind of mbarrier (cp.async.mbarrier.arrive): the
+//    launcher picks the path and reports it to the caller.
+//  * Two lanes a block: B = 256 lanes make 128 blocks, one an SM.
+//  * float64 N x N x N products (S A and A'(S A), 16 k of the 21.6 k
+//    multiply-adds at (16, 8)) on the FP64 tensor core: mma.sync m8n8k4 f64,
+//    one 8 x 8 output tile a warp, exact IEEE products.  float32 stays on
+//    FFMA: no TF32 anywhere (reduced-precision products NaN the recursion at
+//    T >= 300, ilqr_tpu/precision.py).
 //
-// Bound on an H100 (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
-// cores).  A lane and step reads 2N^2 + 2NM + M^2 + N + M values (856 at
-// (16, 8), 1908 at (24, 12)) and writes M + MN (136, 300).  At B = 256,
-// T = 1000, float32, (16, 8): 1.02 GB, 0.30 ms.  Its arithmetic is about
-// 21.6 k multiply-adds a lane and step (43 kFLOP; S·A and A'(S·A) are 16 k of
-// them), 11 GFLOP a launch: 0.17 ms.  Bytes bound it, by a factor of two.
-//
-// Predicted before the first run on the card, when the block shape was still
-// a template argument (LPB, TPL): the products read shared
-// memory for every multiply-add (0.5 loads each), so the kernel is bound by
-// shared-memory loads and instruction dispatch, not by device memory: about
-// 2000 to 2500 cycles a step for a block of 8 lanes, 1.5 to 3 ms at
-// B = 256, T = 1000 in float32 (5 to 10 times the bound) with the best
-// (LPB, TPL), and more with 8 lanes a block, which leaves 100 of 132 SMs
-// idle at B = 256.  float64: two to three times the float32 time.  At
-// (24, 12), B = 64, T = 50: 0.2 to 0.4 ms against a bound of 8 us — 64 lanes
-// cannot fill the card, and 50 dependent steps are 50 round trips.
-// Measured times are in PERF.md.
+// Built with -DRICCATI_STAGE_CLOCKS (a second library, never on the main
+// path) thread 0 of every lane adds the clock64() cycles of each stage of a
+// step into a buffer of [B, kStages] counters.
 
-#include <cuda_pipeline.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace riccati_wide {
 
-constexpr int LPB = 2;    // lanes a block
-constexpr int TPL = 64;   // threads a lane
-constexpr int NTHREADS = LPB * TPL;
+constexpr int TPL = 128;            // threads a lane
+constexpr int WARPS = TPL / 32;
+constexpr int RING = 3;             // steps in the ring of inputs
+constexpr int NIN = 7;              // A, B, qx, ru, Qxx, Pux, Ruu
 constexpr int kMaxSharedBytes = 232448;   // 227 KB: what a Hopper block may use
+constexpr int kStages = 9;          // see STAGES in cuda_riccati.py
+constexpr int PRODUCER = 32;        // the thread that issues TMA: lane 0, warp 1
 
+enum { BATCH_LAST = 0, BATCH_FIRST = 1 };
+
+struct Maps {
+  CUtensorMap m[NIN];
+};
+
+template <typename T> struct Args {
+  const T* in[NIN];
+  const T* qxN;
+  const T* QN;
+  const T* reg;
+  T* duffs;
+  T* Ks;
+  T* dv1;
+  T* dv2;
+  long long* clocks;
+};
+
+// ---- device primitives ----------------------------------------------------
 template <typename T> __device__ __forceinline__ T rsqrt_(T x);
 template <> __device__ __forceinline__ float rsqrt_<float>(float x) { return rsqrtf(x); }
 template <> __device__ __forceinline__ double rsqrt_<double>(double x) { return rsqrt(x); }
 
-template <typename T> struct alignas(16) Vec4 { T v[4]; };
-
-// Element offsets inside one lane's region of shared memory.
-template <int N, int M> struct Layout {
-  // One step's inputs, in the order they are staged (two buffers).
-  static constexpr int A = 0;
-  static constexpr int Bm = A + N * N;
-  static constexpr int qx = Bm + N * M;
-  static constexpr int ru = qx + N;
-  static constexpr int Qxx = ru + M;
-  static constexpr int Pux = Qxx + N * N;
-  static constexpr int Ruu = Pux + M * N;
-  static constexpr int IN = Ruu + M * M;
-  // The carry and the step's intermediates.
-  static constexpr int S = 2 * IN;
-  static constexpr int SA = S + N * N;
-  static constexpr int Sn = SA + N * N;
-  static constexpr int BtS = Sn + N * N;
-  static constexpr int G = BtS + M * N;
-  static constexpr int W = G + M * N;
-  static constexpr int H = W + M * N;
-  static constexpr int L = H + M * M;
-  static constexpr int s = L + M * M;
-  static constexpr int g = s + N;
-  static constexpr int Hd = g + M;
-  static constexpr int invd = Hd + M;
-  // This step's outputs, duff [M] then K [M][N] (two buffers).
-  static constexpr int OUT = M + M * N;
-  static constexpr int out = invd + M;
-  static constexpr int USED = out + 2 * OUT;
-  // Lane regions 4 (mod 32) elements apart: the block-wide copies touch
-  // LPB lanes with one warp, and this keeps them on different banks.
-  static constexpr int LANE = USED + ((4 - USED % 32) + 32) % 32;
-};
-
-// The barrier of one lane's threads: named barrier lane+1 (0 is the block's).
 __device__ __forceinline__ void lane_sync(int lane) {
   asm volatile("bar.sync %0, %1;" ::"r"(lane + 1), "r"(TPL) : "memory");
 }
 
-// C[i][j] = (C0 ? C0[i][j] : 0) + sum_k a(i, k) * Bk[k][j] for an I x J
-// result, by the TPL threads of a lane: thread `lt` takes the 1x4 tiles
-// lt - rot, lt - rot + TPL, ...  a(i, k) is A[i * a_si + k * a_sk], so a
-// transposed left factor costs nothing.  C0 may be C.
-template <typename T, int I, int J, int K>
-__device__ __forceinline__ void lane_gemm(const T* A, int a_si, int a_sk,
-                                          const T* Bk, const T* C0, T* C,
-                                          int lt, int rot) {
-  constexpr int JT = J / 4;
-  for (int tile = (lt - rot + TPL) % TPL; tile < I * JT; tile += TPL) {
-    const int i = tile / JT;
-    const int j0 = (tile % JT) * 4;
-    Vec4<T> acc;
-    if (C0 != nullptr) {
-      acc = *reinterpret_cast<const Vec4<T>*>(C0 + i * J + j0);
+__device__ __forceinline__ void warp_sync() { __syncwarp(); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// One box of a 4-d tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+// One element, asynchronously (the copy path for what TMA cannot take).
+template <typename T>
+__device__ __forceinline__ void copy_elem(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+// `bar` counts one arrival of this thread once its cp.asyncs have landed.
+__device__ __forceinline__ void copy_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// D (8x8) += A (8x4) B (4x8) on the FP64 tensor core; a thread holds
+// a(g, q), b(q, g) and d(g, 2q), d(g, 2q+1), g = lane/4, q = lane%4.
+__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(d0), "+d"(d1) : "d"(a), "d"(b));
+}
+
+__device__ __forceinline__ long long clock_now() { return clock64(); }
+// ---- end of device primitives ---------------------------------------------
+
+// Loads and stores of 2 and 4 consecutive values (8 or 16 bytes in float32;
+// 16, or two of 16, in float64).
+template <typename T> struct V2 {
+  using type = typename std::conditional<sizeof(T) == 4, float2, double2>::type;
+};
+
+template <typename T>
+__device__ __forceinline__ void ld2(const T* p, T& x0, T& x1) {
+  const typename V2<T>::type v = *reinterpret_cast<const typename V2<T>::type*>(p);
+  x0 = v.x;
+  x1 = v.y;
+}
+
+template <typename T>
+__device__ __forceinline__ void ld4(const T* p, T (&x)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+    ld2(p, x[0], x[1]);
+    ld2(p + 2, x[2], x[3]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void st4(T* p, const T (&x)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
+    *reinterpret_cast<double2*>(p + 2) = make_double2(x[2], x[3]);
+  }
+}
+
+// Element offsets of the block's shared memory, in units of T.
+template <typename T, int N, int M> struct Plan {
+  static constexpr int LPB = 2;                     // lanes a block
+  static constexpr int BOX = 16 / (int)sizeof(T);   // lanes of a batch-last box
+  static constexpr int NTHREADS = LPB * TPL;
+  // Input k is a d1(k) x d2(k) matrix a step (vectors are 1 x len).
+  __host__ __device__ static constexpr int d1(int k) {
+    return k == 0 || k == 1 || k == 4 ? N : k == 5 || k == 6 ? M : 1;
+  }
+  __host__ __device__ static constexpr int d2(int k) {
+    return k == 1 || k == 3 || k == 6 ? M : N;
+  }
+  __host__ __device__ static constexpr int E(int k) { return d1(k) * d2(k); }
+  // A step's inputs, densely: A, B, qx, ru, Qxx, Pux, Ruu.
+  __host__ __device__ static constexpr int dense(int k) {
+    return k == 0 ? 0 : dense(k - 1) + E(k - 1);
+  }
+  static constexpr int IN = 2 * N * N + 2 * N * M + M * M + N + M;
+  // In the ring each input's box (BOX lanes batch-last, LPB batch-first)
+  // starts on a 128-byte boundary of the slot.
+  static constexpr int ALIGN = 128 / (int)sizeof(T);
+  __host__ __device__ static constexpr int up(int x) { return (x + ALIGN - 1) / ALIGN * ALIGN; }
+  __host__ __device__ static constexpr int in_off(int k) {
+    return k == 0 ? 0 : in_off(k - 1) + up(E(k - 1) * BOX);
+  }
+  static constexpr int SLOT = in_off(NIN);
+  // A lane's region, every matrix row-major and on 4 elements: the step's
+  // inputs twice (this step's and the next one's), the carry S and its
+  // transpose, then the intermediates.
+  static constexpr int IN0 = 0;
+  static constexpr int S = 2 * IN;
+  static constexpr int St = S + N * N;
+  static constexpr int SA = St + N * N;
+  static constexpr int P = SA + N * N;
+  static constexpr int BtSt = P + N * N;   // (B'S)' = [N][M]
+  // [M][NA] each, NA = N + 4: the N columns of a gain-sized matrix, then
+  // its vector in column N and three zeros: [G | g], [K | duff] and
+  // [W | H duff].
+  static constexpr int NA = N + 4;
+  static constexpr int GA = BtSt + N * M;
+  static constexpr int KA = GA + M * NA;
+  static constexpr int WA = KA + M * NA;
+  static constexpr int H = WA + M * NA;
+  static constexpr int Ht = H + M * M;
+  static constexpr int s = Ht + M * M;
+  static constexpr int ys = s + N;
+  static constexpr int USED = ys + N;
+  static constexpr int LANE = (USED + 3) / 4 * 4;
+  static constexpr int LANES_OFF = RING * SLOT;
+  static constexpr int ELEMS = LANES_OFF + LPB * LANE;
+  // The mbarriers after the elements: full[RING][LPB], then empty[RING].
+  static constexpr int BAR_BYTES = 8 * RING * (LPB + 1);
+  static constexpr int BYTES = ((ELEMS * (int)sizeof(T) + 7) / 8) * 8 + BAR_BYTES;
+  // Threads that repack a step (warps 1..): the arrivals that free a slot.
+  static constexpr int PACKERS = TPL - 32;
+  static_assert(IN % 4 == 0 && N % 4 == 0 && M % 4 == 0, "rows on 16 bytes");
+  static_assert(SLOT % ALIGN == 0 && LANE % 4 == 0, "aligned regions");
+};
+
+// c[r][q] += sum_k a(i0 + r, k) b(k, j0 + q), k = 0, 1, ..., for the RT x 4
+// tile at (i0, j0), RT = 1 or 2: the left factor k-major (at[k * lda + i] =
+// a(i, k)), the right one row-major (b[k * ldb + j]): one load of RT and one
+// of 4 values for 4 RT multiply-adds.
+template <typename T, int RT, int KD>
+__device__ __forceinline__ void tile_acc(const T* at, int lda, const T* b, int ldb,
+                                         int i0, int j0, T (&c)[RT][4]) {
+#pragma unroll
+  for (int k = 0; k < KD; ++k) {
+    T a[RT], bb[4];
+    if constexpr (RT == 1) {
+      a[0] = at[k * lda + i0];
     } else {
-      acc.v[0] = acc.v[1] = acc.v[2] = acc.v[3] = T(0);
+      ld2(at + k * lda + i0, a[0], a[1]);
     }
-    const T* a = A + i * a_si;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const T aik = a[k * a_sk];
-      const Vec4<T> b = *reinterpret_cast<const Vec4<T>*>(Bk + k * J + j0);
-      acc.v[0] += aik * b.v[0];
-      acc.v[1] += aik * b.v[1];
-      acc.v[2] += aik * b.v[2];
-      acc.v[3] += aik * b.v[3];
-    }
-    *reinterpret_cast<Vec4<T>*>(C + i * J + j0) = acc;
-  }
-}
-
-// The whole block copies COUNT elements of each of its lanes from a
-// batch-last array (src points at the block's first lane) into the lanes'
-// regions at element offset dst_off.
-template <typename T, int COUNT, int LANE>
-__device__ __forceinline__ void stage_in(T* smem, int dst_off, const T* src,
-                                         long long B, int nvalid, int tid) {
-  for (int i = tid; i < COUNT * LPB; i += NTHREADS) {
-    const int l = i % LPB;
-    const int e = i / LPB;
-    if (l < nvalid) {
-      __pipeline_memcpy_async(smem + l * LANE + dst_off + e,
-                              src + (long long)e * B + l, sizeof(T));
+    ld4(b + k * ldb + j0, bb);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[r][q] += a[r] * bb[q];
     }
   }
 }
 
-template <typename T, int N, int M>
-__global__ void __launch_bounds__(NTHREADS)
-riccati_wide_kernel(const T* __restrict__ As, const T* __restrict__ Bs,
-                    const T* __restrict__ qx, const T* __restrict__ ru,
-                    const T* __restrict__ Qxx, const T* __restrict__ Pux,
-                    const T* __restrict__ Ruu, const T* __restrict__ qxN,
-                    const T* __restrict__ QN, const T* __restrict__ reg,
-                    T* __restrict__ duffs, T* __restrict__ Ks,
-                    T* __restrict__ dv1, T* __restrict__ dv2, int T_steps,
-                    long long B, int symmetrize) {
-  static_assert(N % 4 == 0 && M % 4 == 0, "1x4 tiles need N, M multiples of 4");
-  static_assert(N + 1 <= 32 && M <= 32, "one warp solves all N+1 columns");
-  using Lay = Layout<N, M>;
-  constexpr int LANE = Lay::LANE;
+// Tile `job` (RT x 4, row-major over the tiles) of the I x J result
+// C = C0 + A B, the sum over KD: A k-major (at, lda), B row-major (b, ldb),
+// C0 (may be null: zero) and C row-major, Ct (may be null) C transposed.
+template <typename T, int RT, int J, int KD>
+__device__ __forceinline__ void tile(int job, const T* at, int lda, const T* b, int ldb,
+                                     const T* c0, int ldc0, T* C, int ldc, T* Ct,
+                                     int ldct) {
+  const int i0 = (job / (J / 4)) * RT, j0 = (job % (J / 4)) * 4;
+  T c[RT][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (c0 != nullptr) {
+      ld4(c0 + (i0 + r) * ldc0 + j0, c[r]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[r][q] = T(0);
+    }
+  }
+  tile_acc<T, RT, KD>(at, lda, b, ldb, i0, j0, c);
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (C != nullptr) st4(C + (i0 + r) * ldc + j0, c[r]);
+    if (Ct != nullptr) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) Ct[(j0 + q) * ldct + i0 + r] = c[r][q];
+    }
+  }
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// One 8 x 8 tile of the N x N x N product C = C0 + A B on the FP64 tensor
+// core, by a whole warp (at k-major, b row-major, as tile's).
+template <int N>
+__device__ __forceinline__ void tile_mma(int job, const double* at, const double* b,
+                                         const double* c0, double* C, int wl) {
+  constexpr int TN = N / 8;
+  const int g = wl >> 2, q = wl & 3;
+  const int i = (job / TN) * 8 + g;
+  const int j = (job % TN) * 8 + 2 * q;
+  const int bj = (job % TN) * 8 + g;
+  double d0 = c0 ? c0[i * N + j] : 0.0;
+  double d1 = c0 ? c0[i * N + j + 1] : 0.0;
+#pragma unroll
+  for (int k0 = 0; k0 < N; k0 += 4)
+    mma_f64(d0, d1, at[(k0 + q) * N + i], b[(k0 + q) * N + bj]);
+  C[i * N + j] = d0;
+  C[i * N + j + 1] = d1;
+}
+
+// The N x N x N product C = C0 + A B (at k-major, b row-major) by warps
+// w0 .. WARPS-1 of a lane: on the FP64 tensor core in float64, in 2 x 4 tiles
+// by FFMA in float32.
+template <typename T, int N>
+__device__ __forceinline__ void nnn_product(const T* at, const T* b, const T* c0,
+                                            T* C, int lt, int w0) {
+  if constexpr (std::is_same<T, double>::value) {
+    for (int job = lt / 32 - w0; job < (N / 8) * (N / 8); job += WARPS - w0)
+      tile_mma<N>(job, at, b, c0, C, lt % 32);
+  } else {
+    for (int job = lt - 32 * w0; job < (N / 2) * (N / 4); job += TPL - 32 * w0)
+      tile<T, 2, N, N>(job, at, N, b, N, c0, N, C, N, nullptr, 0);
+  }
+}
+
+// Job counts rounded up to whole warps: each warp of a stage runs one kind
+// of job, so no warp serializes two code paths.
+__host__ __device__ constexpr int whole_warps(int jobs) { return (jobs + 31) / 32 * 32; }
+// Rows of a tile: 1 where that gives the jobs at most `warps` warps, else 2.
+__host__ __device__ constexpr int tile_rows(int rows, int cols, int warps) {
+  return rows * (cols / 4) <= 32 * warps ? 1 : 2;
+}
+
+template <typename T, int N, int M, int LAYOUT>
+__global__ void __launch_bounds__(Plan<T, N, M>::NTHREADS, 1)
+riccati_wide_kernel(const __grid_constant__ Maps maps, const Args<T> args,
+                    int T_steps, long long B, int symmetrize, int tma) {
+  using P = Plan<T, N, M>;
+  constexpr int LPB = P::LPB;
+  constexpr int BOX = LAYOUT == BATCH_LAST ? P::BOX : LPB;
+  constexpr int NA = P::NA;
+  constexpr bool F64 = std::is_same<T, double>::value;
+  static_assert(N % 8 == 0, "8 x 8 tiles of the N x N products");
+  static_assert(N + 1 <= 32, "one warp solves the N + 1 columns");
+  static_assert(P::BYTES <= kMaxSharedBytes, "the block does not fit");
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + (P::BYTES - P::BAR_BYTES));
+  uint64_t* empty = full + RING * LPB;
 
   const int tid = threadIdx.x;
-  const int lane = tid / TPL;   // which of the block's lanes
-  const int lt = tid % TPL;     // which of the lane's threads
+  const int lane = tid / TPL;
+  const int lt = tid % TPL;
+  const int warp = lt / 32;
+  const int wl = lt % 32;
   const long long b0 = (long long)blockIdx.x * LPB;
-  const int nvalid = (B - b0 < LPB) ? (int)(B - b0) : LPB;
-  const bool valid = lane < nvalid;
   const long long b = b0 + lane;
-  T* my = smem + lane * LANE;
+  const bool valid = b < B;
+  T* my = smem + P::LANES_OFF + lane * P::LANE;
+  // A batch-last box starts on 16 bytes of lanes (TMA refuses another
+  // start): this lane's place in it.
+  const long long box0 = LAYOUT == BATCH_LAST ? b0 - b0 % BOX : b0;
+  const int in_box = (int)(b - box0);
 
-  for (int i = tid; i < LPB * LANE; i += NTHREADS) smem[i] = T(0);
+  for (int i = tid; i < P::ELEMS; i += P::NTHREADS) smem[i] = T(0);
+  if (tid == 0) {
+    for (int r = 0; r < RING; ++r) {
+      for (int l = 0; l < LPB; ++l) mbar_init(&full[r * LPB + l], tma ? 1 : TPL);
+      mbar_init(&empty[r], LPB * P::PACKERS);
+    }
+  }
+  mbar_init_fence();
   __syncthreads();
 
-  // The carry, seeded from the terminal cost.
+  // Bring iteration it (step T-1-it) into its slot of the ring: by TMA, from
+  // thread PRODUCER, or by the lane's own threads.
+  auto issue = [&](int it) {
+    const int t = T_steps - 1 - it;
+    const int r = it % RING;
+    T* slot = smem + r * P::SLOT;
+    if (tma) {
+      if (tid != PRODUCER) return;
+      mbar_arrive_expect_tx(&full[r * LPB], (uint32_t)(sizeof(T) * BOX * P::IN));
+#pragma unroll
+      for (int k = 0; k < NIN; ++k) {
+        if (LAYOUT == BATCH_LAST)
+          tma_load(slot + P::in_off(k), &maps.m[k], (int)box0, 0, 0, t, &full[r * LPB]);
+        else
+          tma_load(slot + P::in_off(k), &maps.m[k], 0, 0, t, (int)box0, &full[r * LPB]);
+      }
+      return;
+    }
+    if (valid) {
+#pragma unroll
+      for (int k = 0; k < NIN; ++k) {
+        const int E = P::E(k);
+        const T* src = args.in[k];
+        for (int e = lt; e < E; e += TPL) {
+          const long long at = LAYOUT == BATCH_LAST
+                                   ? ((long long)t * E + e) * B + b
+                                   : ((long long)b * T_steps + t) * E + e;
+          const int to = LAYOUT == BATCH_LAST ? e * BOX + in_box : in_box * E + e;
+          copy_elem(slot + P::in_off(k) + to, src + at);
+        }
+      }
+    }
+    copy_arrive(&full[r * LPB + lane]);
+  };
+
+  // Warps 1..: wait for iteration it's inputs, copy them densely into
+  // their buffer, free the slot; with TMA the producer then refills it with
+  // iteration it + RING once both lanes have freed it.
+  auto repack = [&](int it) {
+    const int r = it % RING;
+    mbar_wait(&full[r * LPB + (tma ? 0 : lane)], (uint32_t)((it / RING) & 1));
+    const T* slot = smem + r * P::SLOT;
+    T* dst = my + P::IN0 + (it & 1) * P::IN;
+#pragma unroll
+    for (int k = 0; k < NIN; ++k) {
+      const int E = P::E(k);
+      for (int e = lt - 32; e < E; e += P::PACKERS)
+        dst[P::dense(k) + e] = slot[P::in_off(k) + (LAYOUT == BATCH_LAST
+                                                         ? e * BOX + in_box
+                                                         : in_box * E + e)];
+    }
+    if (tma) {
+      mbar_arrive(&empty[r]);
+      if (tid == PRODUCER && it + RING < T_steps) {
+        mbar_wait(&empty[r], (uint32_t)((it / RING) & 1));
+        issue(it + RING);
+      }
+    }
+  };
+
+  // The carry, seeded from the terminal cost, and its transpose.
   if (valid) {
-    for (int i = lt; i < N * N; i += TPL) my[Lay::S + i] = QN[(long long)i * B + b];
-    for (int i = lt; i < N; i += TPL) my[Lay::s + i] = qxN[(long long)i * B + b];
+    for (int i = lt; i < N * N; i += TPL) {
+      const T v = LAYOUT == BATCH_LAST ? args.QN[(long long)i * B + b]
+                                       : args.QN[b * N * N + i];
+      my[P::S + i] = v;
+      my[P::St + (i % N) * N + i / N] = v;
+    }
+    for (int i = lt; i < N; i += TPL)
+      my[P::s + i] = LAYOUT == BATCH_LAST ? args.qxN[(long long)i * B + b]
+                                          : args.qxN[b * N + i];
   }
-  const T reg_b = valid ? reg[b] : T(1);
+  const T reg_b = valid ? args.reg[b] : T(1);
   const T half = T(0.5);
   T dv1_acc = T(0), dv2_acc = T(0);   // kept by the lane's thread 0
-
-  auto prefetch = [&](int t) {
-    const int off = (t & 1) * Lay::IN;
-    const long long tt = t;
-    stage_in<T, N * N, LANE>(smem, off + Lay::A, As + tt * N * N * B + b0, B, nvalid, tid);
-    stage_in<T, N * M, LANE>(smem, off + Lay::Bm, Bs + tt * N * M * B + b0, B, nvalid, tid);
-    stage_in<T, N, LANE>(smem, off + Lay::qx, qx + tt * N * B + b0, B, nvalid, tid);
-    stage_in<T, M, LANE>(smem, off + Lay::ru, ru + tt * M * B + b0, B, nvalid, tid);
-    stage_in<T, N * N, LANE>(smem, off + Lay::Qxx, Qxx + tt * N * N * B + b0, B, nvalid, tid);
-    stage_in<T, M * N, LANE>(smem, off + Lay::Pux, Pux + tt * M * N * B + b0, B, nvalid, tid);
-    stage_in<T, M * M, LANE>(smem, off + Lay::Ruu, Ruu + tt * M * M * B + b0, B, nvalid, tid);
+#ifdef RICCATI_STAGE_CLOCKS
+  long long clk[kStages] = {};
+  long long c_prev = 0;
+  auto tick = [&](int stage) {
+    const long long now = clock_now();
+    clk[stage] += now - c_prev;
+    c_prev = now;
   };
+#else
+  auto tick = [](int) {};
+#endif
 
-  // The whole block writes the gains of step t (duff, then K) of its lanes.
-  auto store_out = [&](int t) {
-    const int off = Lay::out + (t & 1) * Lay::OUT;
-    T* duff_t = duffs + (long long)t * M * B + b0;
-    T* K_t = Ks + (long long)t * M * N * B + b0;
-    for (int i = tid; i < Lay::OUT * LPB; i += NTHREADS) {
-      const int l = i % LPB;
-      const int e = i / LPB;
-      if (l < nvalid) {
-        const T v = smem[l * LANE + off + e];
-        if (e < M) {
-          duff_t[(long long)e * B + l] = v;
-        } else {
-          K_t[(long long)(e - M) * B + l] = v;
-        }
-      }
-    }
-  };
+  for (int it = 0; it < RING && it < T_steps; ++it) issue(it);
+  if (T_steps > 0 && warp > 0) repack(0);
+  lane_sync(lane);
 
-  if (T_steps > 0) prefetch(T_steps - 1);
-  __pipeline_commit();
+  for (int it = 0; it < T_steps; ++it) {
+    const int t = T_steps - 1 - it;
+    const T* in = my + P::IN0 + (it & 1) * P::IN;
+    const T* A = in + P::dense(0);
+    const T* Bm = in + P::dense(1);
+    const T* qx = in + P::dense(2);
+    const T* ru = in + P::dense(3);
+    const T* Qxx = in + P::dense(4);
+    const T* Pux = in + P::dense(5);
+    const T* Ruu = in + P::dense(6);
+#ifdef RICCATI_STAGE_CLOCKS
+    c_prev = clock_now();
+#endif
 
-  for (int t = T_steps - 1; t >= 0; --t) {
-    // Step t's inputs have landed, and every lane is done with step t+1:
-    // its staging buffer and the gain buffer of step t+2 are free.
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    if (t > 0) prefetch(t - 1);
-    __pipeline_commit();
-    if (t < T_steps - 1) store_out(t + 1);
-
-    const T* in = my + (t & 1) * Lay::IN;
-    const T* A_ = in + Lay::A;
-    const T* Bm_ = in + Lay::Bm;
-    T* S_ = my + Lay::S;
-    T* s_ = my + Lay::s;
-    T* SA_ = my + Lay::SA;
-    T* Sn_ = my + Lay::Sn;
-    T* BtS_ = my + Lay::BtS;
-    T* G_ = my + Lay::G;
-    T* W_ = my + Lay::W;
-    T* H_ = my + Lay::H;
-    T* L_ = my + Lay::L;
-    T* g_ = my + Lay::g;
-    T* Hd_ = my + Lay::Hd;
-    T* invd_ = my + Lay::invd;
-    T* duff_ = my + Lay::out + (t & 1) * Lay::OUT;
-    T* K_ = duff_ + M;
-
-    // 1. BtS = B'S,  g = ru + B's.
-    lane_gemm<T, M, N, N>(Bm_, 1, M, S_, nullptr, BtS_, lt, 0);
-    if (lt < M) {
-      T acc = in[Lay::ru + lt];
-      for (int k = 0; k < N; ++k) acc += Bm_[k * M + lt] * s_[k];
-      g_[lt] = acc;
-    }
-    lane_sync(lane);
-
-    // 2. G = Pux + BtS A,  H = Ruu + BtS B,  SA = S A.
-    lane_gemm<T, M, N, N>(BtS_, N, 1, A_, in + Lay::Pux, G_, lt, 0);
-    lane_gemm<T, M, M, N>(BtS_, N, 1, Bm_, in + Lay::Ruu, H_, lt,
-                               (M * N / 4) % TPL);
-    lane_gemm<T, N, N, N>(S_, N, 1, A_, nullptr, SA_, lt, 0);
-    lane_sync(lane);
-
-    // 3. Cholesky-Crout of H + reg I by the lane's first warp, one column
-    // a round: thread i owns row i.  Every thread recomputes the pivot.
-    if (lt < 32) {
-      for (int j = 0; j < M; ++j) {
-        T piv = H_[j * M + j] + reg_b;
-        for (int k = 0; k < j; ++k) piv -= L_[j * M + k] * L_[j * M + k];
-        const T r = rsqrt_<T>(piv);
-        if (lt == j) {
-          L_[j * M + j] = piv * r;
-          invd_[j] = r;
-        } else if (lt > j && lt < M) {
-          T acc = H_[lt * M + j];
-          for (int k = 0; k < j; ++k) acc -= L_[lt * M + k] * L_[j * M + k];
-          L_[lt * M + j] = acc * r;
-        }
-        __syncwarp();
-      }
-    }
-    lane_sync(lane);
-
-    // 4. duff = -(H + reg I)^-1 g,  K = -(H + reg I)^-1 G: thread c < N
-    // solves column c of G, thread N solves g.
-    if (lt <= N) {
-      T x[M];
+    // 1. SA = S A;  BtS = B'S (stored transposed);  g = ru + B's (column N
+    //    of GA), ys = qx + A's.
+    {
+      constexpr int SA_J = F64 ? 0 : (N / 2) * (N / 4);
+      constexpr int BT_RT = tile_rows(M, N, 1);
+      constexpr int BT_J = (M / BT_RT) * (N / 4);
+      constexpr int O1 = whole_warps(SA_J), O2 = O1 + whole_warps(BT_J);
+      if (F64) nnn_product<T, N>(my + P::St, A, nullptr, my + P::SA, lt, 0);
+      for (int job = lt; job < O2 + M + N; job += TPL) {
+        if (job < O1) {
+          if (job < SA_J)
+            tile<T, 2, N, N>(job, my + P::St, N, A, N, nullptr, 0, my + P::SA, N,
+                             nullptr, 0);
+        } else if (job < O2) {
+          if (job - O1 < BT_J)
+            tile<T, BT_RT, N, N>(job - O1, Bm, M, my + P::S, N, nullptr, 0, nullptr,
+                                 0, my + P::BtSt, M);
+        } else if (job < O2 + M) {
+          const int i = job - O2;
+          T acc = ru[i];
 #pragma unroll
-      for (int a = 0; a < M; ++a) x[a] = (lt < N) ? G_[a * N + lt] : g_[a];
+          for (int k = 0; k < N; ++k) acc += Bm[k * M + i] * my[P::s + k];
+          my[P::GA + i * NA + N] = acc;
+        } else {
+          const int i = job - O2 - M;
+          T acc = qx[i];
+#pragma unroll
+          for (int k = 0; k < N; ++k) acc += A[k * N + i] * my[P::s + k];
+          my[P::ys + i] = acc;
+        }
+      }
+    }
+    lane_sync(lane);
+    tick(0);
+
+    // 2. G = Pux + BtS A (into GA),  H = Ruu + BtS B (and H').
+    {
+      constexpr int G_RT = tile_rows(M, N, 3);
+      constexpr int G_J = (M / G_RT) * (N / 4);
+      constexpr int H_RT = tile_rows(M, M, 1);
+      constexpr int H_J = (M / H_RT) * (M / 4);
+      constexpr int O1 = whole_warps(G_J);
+      for (int job = lt; job < O1 + H_J; job += TPL) {
+        if (job < O1) {
+          if (job < G_J)
+            tile<T, G_RT, N, N>(job, my + P::BtSt, M, A, N, Pux, N, my + P::GA, NA,
+                                nullptr, 0);
+        } else {
+          tile<T, H_RT, M, N>(job - O1, my + P::BtSt, M, Bm, M, Ruu, M, my + P::H,
+                              M, my + P::Ht, M);
+        }
+      }
+    }
+    lane_sync(lane);
+    tick(1);
+
+    // 3. Warp 0: the gains.  Warps 1..: P = Qxx + A'(SA), then the next
+    //    step's inputs out of the ring.
+    if (warp == 0) {
+      // Cholesky of H + reg I, every thread of the warp the whole of it in
+      // registers (no exchange on the chain): right-looking, one rsqrt a
+      // pivot, the subtractions in the reference's order.  L overwrites
+      // the lower triangle of a.
+      T a[M][M], invd[M];
 #pragma unroll
       for (int i = 0; i < M; ++i) {
-        T acc = x[i];
 #pragma unroll
-        for (int j = 0; j < i; ++j) acc -= L_[i * M + j] * x[j];
-        x[i] = acc * invd_[i];
+        for (int k = 0; k <= i; ++k) a[i][k] = my[P::H + i * M + k];
+        a[i][i] += reg_b;
       }
 #pragma unroll
-      for (int i = M - 1; i >= 0; --i) {
-        T acc = x[i];
+      for (int j = 0; j < M; ++j) {
+        const T piv = a[j][j];
+        const T rj = rsqrt_<T>(piv);
+        invd[j] = rj;
+        a[j][j] = piv * rj;
 #pragma unroll
-        for (int j = i + 1; j < M; ++j) acc -= L_[j * M + i] * x[j];
-        x[i] = acc * invd_[i];
+        for (int i = j + 1; i < M; ++i) a[i][j] *= rj;
+#pragma unroll
+        for (int i = j + 1; i < M; ++i) {
+#pragma unroll
+          for (int k = j + 1; k <= i; ++k) a[i][k] -= a[i][j] * a[k][j];
+        }
       }
-      if (lt < N) {
+      tick(2);
+      // [K | duff] = -(H + reg I)^-1 [G | g] by substitution, column c by
+      // thread c (N + 1 <= 32), with the reference's order: x = L^-1 b, then
+      // x = L^-T x, multiplying by the reciprocal pivots.
+      if (wl <= N) {
+        T x[M];
 #pragma unroll
-        for (int a = 0; a < M; ++a) K_[a * N + lt] = -x[a];
-      } else {
+        for (int i = 0; i < M; ++i) x[i] = my[P::GA + i * NA + wl];
 #pragma unroll
-        for (int a = 0; a < M; ++a) duff_[a] = -x[a];
+        for (int i = 0; i < M; ++i) {
+          T acc = x[i];
+#pragma unroll
+          for (int j = 0; j < i; ++j) acc -= a[i][j] * x[j];
+          x[i] = acc * invd[i];
+        }
+#pragma unroll
+        for (int i = M - 1; i >= 0; --i) {
+          T acc = x[i];
+#pragma unroll
+          for (int j = i + 1; j < M; ++j) acc -= a[j][i] * x[j];
+          x[i] = acc * invd[i];
+        }
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          const T v = -x[i];
+          my[P::KA + i * NA + wl] = v;
+          if (!valid) continue;
+          if (wl < N) {
+            if (LAYOUT == BATCH_LAST)
+              args.Ks[(((long long)t * M + i) * N + wl) * B + b] = v;
+            else
+              args.Ks[(((long long)b * T_steps + t) * M + i) * N + wl] = v;
+          } else if (LAYOUT == BATCH_LAST) {
+            args.duffs[((long long)t * M + i) * B + b] = v;
+          } else {
+            args.duffs[((long long)b * T_steps + t) * M + i] = v;
+          }
+        }
       }
+      warp_sync();
+      tick(3);
+      constexpr int QJ = M * (NA / 4);   // quads of [M][NA]
+      // [W | Hd] = [G | 0] + H [K | duff]: K'HK + K'G = K'W, Hd = H duff
+      // (raw H).
+      for (int job = wl; job < QJ; job += 32) {
+        const int i = job / (NA / 4), c = (job % (NA / 4)) * 4;
+        T w[1][4] = {{T(0), T(0), T(0), T(0)}};
+        if (c < N) ld4(my + P::GA + i * NA + c, w[0]);
+        tile_acc<T, 1, M>(my + P::Ht + i, M, my + P::KA, NA, 0, c, w);
+        st4(my + P::WA + i * NA + c, w[0]);
+      }
+      warp_sync();
+      tick(4);
+      if (wl == 0) {
+        T dg = T(0), dHd = T(0);
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          const T d = my[P::KA + i * NA + N];
+          dg += d * my[P::GA + i * NA + N];
+          dHd += d * my[P::WA + i * NA + N];
+        }
+        dv1_acc += dg;
+        dv2_acc += half * dHd;
+      }
+      tick(5);
+    } else {
+      nnn_product<T, N>(A, my + P::SA, Qxx, my + P::P, lt, 1);
+      if (it + 1 < T_steps) repack(it + 1);
     }
     lane_sync(lane);
+    tick(6);
 
-    // 5. W = G + H K (so that K'HK + K'G = K'W),  Hd = H duff (raw H).
-    lane_gemm<T, M, N, M>(H_, M, 1, K_, G_, W_, lt, 0);
-    if (lt >= TPL - M) {
-      const int a = lt - (TPL - M);
-      T acc = T(0);
-      for (int c = 0; c < M; ++c) acc += H_[a * M + c] * duff_[c];
-      Hd_[a] = acc;
-    }
-    lane_sync(lane);
+    // Without TMA the lane's threads bring in the step RING iterations
+    // ahead, into the slot the repack of this step freed.
+    if (!tma && it + RING < T_steps) issue(it + RING);
+    tick(7);
 
-    // 6. Sn = Qxx + A'(SA) + K'W + G'K,  s_next likewise (in a register),
-    // and the expected-decrease sums.
-    lane_gemm<T, N, N, N>(A_, 1, N, SA_, in + Lay::Qxx, Sn_, lt, 0);
-    lane_gemm<T, N, N, M>(K_, 1, N, W_, Sn_, Sn_, lt, 0);
-    lane_gemm<T, N, N, M>(G_, 1, N, K_, Sn_, Sn_, lt, 0);
-    T s_next = T(0);
-    if (lt < N) {
-      T acc = in[Lay::qx + lt];
-      for (int k = 0; k < N; ++k) acc += A_[k * N + lt] * s_[k];
-      for (int a = 0; a < M; ++a)
-        acc += K_[a * N + lt] * (Hd_[a] + g_[a]) + G_[a * N + lt] * duff_[a];
-      s_next = acc;
-    }
-    if (lt == TPL - 1) {
-      T dg = T(0), dHd = T(0);
+    // 4. Sn = P + K'W + G'K, by 2 x 2 blocks (i-block <= j-block) and their
+    //    mirrors, written symmetrized (and transposed);
+    //    s = ys + K'(H duff + g) + G'duff.
+    constexpr int NB = N / 2;
+    for (int job = lt; job < NB * (NB + 1) / 2; job += TPL) {
+      int I = 0, rest = job;
+      while (rest >= NB - I) {
+        rest -= NB - I;
+        ++I;
+      }
+      const int i0 = 2 * I, j0 = 2 * (I + rest);
+      T sn[2][2], sm[2][2];   // Sn(i0 + r, j0 + q) and Sn(j0 + q, i0 + r)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          sn[r][q] = my[P::P + (i0 + r) * N + j0 + q];
+          sm[r][q] = my[P::P + (j0 + q) * N + i0 + r];
+        }
+      }
+#pragma unroll
       for (int a = 0; a < M; ++a) {
-        dg += duff_[a] * g_[a];
-        dHd += duff_[a] * Hd_[a];
+        T ki[2], kj[2], wi[2], wj[2];
+        ld2(my + P::KA + a * NA + i0, ki[0], ki[1]);
+        ld2(my + P::KA + a * NA + j0, kj[0], kj[1]);
+        ld2(my + P::WA + a * NA + i0, wi[0], wi[1]);
+        ld2(my + P::WA + a * NA + j0, wj[0], wj[1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            sn[r][q] += ki[r] * wj[q];
+            sm[r][q] += kj[q] * wi[r];
+          }
+        }
       }
-      dv1_acc += dg;
-      dv2_acc += half * dHd;
+#pragma unroll
+      for (int a = 0; a < M; ++a) {
+        T gi[2], gj[2], ki[2], kj[2];
+        ld2(my + P::GA + a * NA + i0, gi[0], gi[1]);
+        ld2(my + P::GA + a * NA + j0, gj[0], gj[1]);
+        ld2(my + P::KA + a * NA + i0, ki[0], ki[1]);
+        ld2(my + P::KA + a * NA + j0, kj[0], kj[1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            sn[r][q] += gi[r] * kj[q];
+            sm[r][q] += gj[q] * ki[r];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = i0 + r, j = j0 + q;
+          const T vij = symmetrize ? half * (sn[r][q] + sm[r][q]) : sn[r][q];
+          const T vji = symmetrize ? vij : sm[r][q];
+          my[P::S + i * N + j] = vij;
+          my[P::S + j * N + i] = vji;
+          my[P::St + j * N + i] = vij;
+          my[P::St + i * N + j] = vji;
+        }
+      }
+    }
+    if (lt >= TPL - N) {
+      const int i = lt - (TPL - N);
+      T acc = my[P::ys + i];
+#pragma unroll
+      for (int a = 0; a < M; ++a)
+        acc += my[P::KA + a * NA + i] * (my[P::WA + a * NA + N] + my[P::GA + a * NA + N]) +
+               my[P::GA + a * NA + i] * my[P::KA + a * NA + N];
+      my[P::s + i] = acc;
     }
     lane_sync(lane);
-
-    // 7. The new carry: S = (Sn + Sn')/2 if symmetrize, else Sn.
-    for (int i = lt; i < N * N; i += TPL) {
-      const int r = i / N, c = i % N;
-      S_[i] = symmetrize ? half * (Sn_[i] + Sn_[c * N + r]) : Sn_[i];
-    }
-    if (lt < N) s_[lt] = s_next;
+    tick(8);
   }
 
-  __syncthreads();
-  if (T_steps > 0) store_out(0);
-  if (valid && lt == TPL - 1) {
-    dv1[b] = dv1_acc;
-    dv2[b] = dv2_acc;
+  if (valid && lt == 0) {
+    args.dv1[b] = dv1_acc;
+    args.dv2[b] = dv2_acc;
   }
+#ifdef RICCATI_STAGE_CLOCKS
+  if (valid && lt == 0 && args.clocks != nullptr) {
+    for (int k = 0; k < kStages; ++k) args.clocks[b * kStages + k] = clk[k];
+  }
+#endif
 }
 
 }  // namespace riccati_wide
 
 namespace {
 
+using namespace riccati_wide;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function; it is taken through the
+// runtime, so that the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of input k: a box of one step of BOX lanes (batch-last) or
+// of the block's LPB lanes (batch-first).
 template <typename T, int N, int M>
-int launch(const void* As, const void* Bs, const void* qx, const void* ru,
-           const void* Qxx, const void* Pux, const void* Ruu, const void* qxN,
-           const void* QN, const void* reg, void* duffs, void* Ks, void* dv1,
-           void* dv2, int T_steps, long long B, int symmetrize, void* stream) {
-  using namespace riccati_wide;
-  constexpr size_t bytes = sizeof(T) * (size_t)LPB * Layout<N, M>::LANE;
-  static_assert(bytes <= (size_t)kMaxSharedBytes, "lanes do not fit a block");
-  if (B <= 0 || T_steps < 0) return (int)cudaErrorInvalidValue;
-  auto kernel = riccati_wide_kernel<T, N, M>;
+bool encode(CUtensorMap* map, int k, const void* base, int T_steps, long long B,
+            int layout) {
+  using P = Plan<T, N, M>;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t s = sizeof(T), d1 = P::d1(k), d2 = P::d2(k);
+  const cuuint64_t Bu = (cuuint64_t)B, Tu = (cuuint64_t)T_steps;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], estr[4] = {1, 1, 1, 1};
+  if (layout == BATCH_LAST) {
+    const cuuint64_t d[4] = {Bu, d2, d1, Tu};
+    const cuuint64_t st[3] = {Bu * s, d2 * Bu * s, d1 * d2 * Bu * s};
+    const cuuint32_t bx[4] = {(cuuint32_t)P::BOX, (cuuint32_t)d2, (cuuint32_t)d1, 1};
+    for (int i = 0; i < 4; ++i) { dims[i] = d[i]; box[i] = bx[i]; }
+    for (int i = 0; i < 3; ++i) strides[i] = st[i];
+  } else {
+    const cuuint64_t d[4] = {d2, d1, Tu, Bu};
+    const cuuint64_t st[3] = {d2 * s, d1 * d2 * s, Tu * d1 * d2 * s};
+    const cuuint32_t bx[4] = {(cuuint32_t)d2, (cuuint32_t)d1, 1, (cuuint32_t)P::LPB};
+    for (int i = 0; i < 4; ++i) { dims[i] = d[i]; box[i] = bx[i]; }
+    for (int i = 0; i < 3; ++i) strides[i] = st[i];
+  }
+  const CUtensorMapDataType type = sizeof(T) == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int N, int M>
+int launch(const void* const* in, const void* qxN, const void* QN, const void* reg,
+           void* duffs, void* Ks, void* dv1, void* dv2, int T_steps, long long B,
+           int symmetrize, int layout, int* path, void* clocks, void* stream) {
+  using P = Plan<T, N, M>;
+#ifndef RICCATI_STAGE_CLOCKS
+  if (clocks != nullptr) return (int)cudaErrorInvalidValue;
+#endif
+  // TMA coordinates are 32-bit.
+  if (B <= 0 || B > 0x7fffffffLL || T_steps < 0 ||
+      (layout != BATCH_LAST && layout != BATCH_FIRST))
+    return (int)cudaErrorInvalidValue;
+  // The copy path.  TMA takes an input when its base is on 16 bytes, its
+  // strides are multiples of 16 bytes and the batch holds at least one box
+  // of lanes.  A batch-first stride is a row of N or M values, on 16 bytes
+  // by Plan's static_assert; a batch-last one is a row of B lanes.
+  int tma = T_steps > 0 && B >= (layout == BATCH_LAST ? P::BOX : P::LPB);
+  if (layout == BATCH_LAST && (B * (long long)sizeof(T)) % 16) tma = 0;
+  for (int k = 0; k < NIN; ++k)
+    if (reinterpret_cast<uintptr_t>(in[k]) % 16) tma = 0;
+  if (path != nullptr) *path = tma;
+  Maps maps = {};
+  Args<T> args;
+  for (int k = 0; k < NIN; ++k) {
+    args.in[k] = static_cast<const T*>(in[k]);
+    if (tma && !encode<T, N, M>(&maps.m[k], k, in[k], T_steps, B, layout))
+      return (int)cudaErrorInvalidValue;
+  }
+  args.qxN = static_cast<const T*>(qxN);
+  args.QN = static_cast<const T*>(QN);
+  args.reg = static_cast<const T*>(reg);
+  args.duffs = static_cast<T*>(duffs);
+  args.Ks = static_cast<T*>(Ks);
+  args.dv1 = static_cast<T*>(dv1);
+  args.dv2 = static_cast<T*>(dv2);
+  args.clocks = static_cast<long long*>(clocks);
+  auto kernel = layout == BATCH_LAST ? riccati_wide_kernel<T, N, M, BATCH_LAST>
+                                     : riccati_wide_kernel<T, N, M, BATCH_FIRST>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((B + LPB - 1) / LPB));
-  kernel<<<grid, dim3(NTHREADS), bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(As), static_cast<const T*>(Bs),
-      static_cast<const T*>(qx), static_cast<const T*>(ru),
-      static_cast<const T*>(Qxx), static_cast<const T*>(Pux),
-      static_cast<const T*>(Ruu), static_cast<const T*>(qxN),
-      static_cast<const T*>(QN), static_cast<const T*>(reg),
-      static_cast<T*>(duffs), static_cast<T*>(Ks), static_cast<T*>(dv1),
-      static_cast<T*>(dv2), T_steps, B, symmetrize);
+  const dim3 grid((unsigned)((B + P::LPB - 1) / P::LPB));
+  kernel<<<grid, dim3(P::NTHREADS), P::BYTES, static_cast<cudaStream_t>(stream)>>>(
+      maps, args, T_steps, B, symmetrize, tma);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, one function per instantiation, as riccati.cu's: raw
-// device pointers, T, B, symmetrize (0/1) and the CUDA stream; returns
-// cudaGetLastError().
-#define RICCATI_WIDE_EXPORT(NAME, SCALAR, N, M)                               \
-  extern "C" int NAME(const void* As, const void* Bs, const void* qx,         \
-                      const void* ru, const void* Qxx, const void* Pux,       \
-                      const void* Ruu, const void* qxN, const void* QN,       \
-                      const void* reg, void* duffs, void* Ks, void* dv1,      \
-                      void* dv2, int T, long long B, int symmetrize,          \
-                      void* stream) {                                         \
-    return launch<SCALAR, N, M>(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,  \
-                                duffs, Ks, dv1, dv2, T, B, symmetrize,        \
-                                stream);                                      \
+// Plain C interface, one function per instantiation, as riccati.cu's: the
+// seven step inputs as an array of device pointers, then qxN, QN, reg, the
+// four outputs, T, B, symmetrize (0/1), layout (0 batch-last, 1 batch-first),
+// where to write the copy path taken (1: TMA, 0: per element; may be null), a
+// [B, kStages] int64 buffer of stage clocks (null unless built with
+// -DRICCATI_STAGE_CLOCKS) and the CUDA stream; returns a cudaError_t.
+#define RICCATI_WIDE_EXPORT(NAME, SCALAR, N, M)                                  \
+  extern "C" int NAME(const void* const* in, const void* qxN, const void* QN,    \
+                      const void* reg, void* duffs, void* Ks, void* dv1,         \
+                      void* dv2, int T, long long B, int symmetrize, int layout, \
+                      int* path, void* clocks, void* stream) {                   \
+    return launch<SCALAR, N, M>(in, qxN, QN, reg, duffs, Ks, dv1, dv2, T, B,     \
+                                symmetrize, layout, path, clocks, stream);       \
   }
 
 RICCATI_WIDE_EXPORT(riccati_cuda_16x8_f32, float, 16, 8)

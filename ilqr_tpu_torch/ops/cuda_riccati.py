@@ -3,9 +3,11 @@
 Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (its batch-last entry
 ``riccati_scan_pallas_bl`` and its batch-first entry
 ``riccati_scan_pallas_batched``).  The kernel is written by hand for ``sm_90a``
-in two designs — ``csrc/riccati.cu``, one thread a lane, for ``(n, m) =
-(4, 2)``; ``csrc/riccati_wide.cu``, a lane spread over two warps with its
-matrices in shared memory, for ``(16, 8)`` and ``(24, 12)`` — built
+in two designs — ``csrc/riccati.cu``, one thread a lane with a ring of
+prefetched steps, for ``(n, m) = (4, 2)``; ``csrc/riccati_wide.cu``, a lane
+spread over four warps with its matrices in shared memory and its inputs
+brought in by TMA, for ``(16, 8)`` and ``(24, 12)`` (each source says why) —
+both reading either layout in place, selected by a layout argument, built
 at first use by :mod:`ilqr_tpu_torch.ops._build` and called through ctypes.
 It has no gradient (the JAX kernel has none either), so there is no
 ``torch.autograd.Function`` around it.
@@ -15,10 +17,15 @@ It has no gradient (the JAX kernel has none either), so there is no
   never falls back from one to the other.
 * :func:`riccati_scan_cuda_batched` — the batch-first entry (counterpart of
   ``riccati_scan_pallas_batched``, which the per-scenario solver reaches
-  when it is batched): ``[B, T, ...]`` inputs are made batch-last and
-  contiguous, the same kernel runs, and the outputs are handed back
-  batch-first.  Its launches are counted apart
-  (:data:`batched_launch_counts`).
+  when it is batched): the same kernels read ``[B, T, ...]`` inputs and
+  write batch-first outputs, with no layout copy.  The arithmetic of a lane
+  is the same in both layouts, so the two entries agree bit for bit.  Its
+  launches are counted apart (:data:`batched_launch_counts`).
+* :data:`last_launch` — the kernel, layout and copy path of the last
+  launch, as the library reports them.
+* :func:`riccati_stage_clocks` — cycles a step by stage, from a second
+  build of a source with ``-DRICCATI_STAGE_CLOCKS`` (never on the main
+  path).
 * :func:`riccati_scan_plain_bl`, :func:`riccati_scan_plain_batched` — the
   same algebra step by step in PyTorch (Python loop over ``t``, one
   ``rsqrt`` per Cholesky pivot as in the kernel).  The CPU tests use them
@@ -71,6 +78,18 @@ LIBRARY: Dict[str, str] = {
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS.values()}
 batched_launch_counts: Dict[str, int] = {name: 0 for name in KERNELS.values()}
 
+# The layout argument of the kernels.
+BATCH_LAST, BATCH_FIRST = 0, 1
+
+# The copy paths a launcher reports: riccati_wide.cu takes TMA where every
+# input allows it, else copies per element; riccati.cu copies a value at a
+# time batch-last and 16 bytes at a time batch-first.
+COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16"}
+
+# Kernel name, layout and copy path of the last launch (either entry, or
+# the stage-clock build).
+last_launch: Dict[str, object] = {}
+
 
 def launches() -> int:
     """Total kernel launches made by both entries."""
@@ -99,43 +118,61 @@ def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
             "instantiation") from None
 
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_longlong,
-                                      ctypes.c_int, ctypes.c_void_p]
-
-
-def _launcher(name: str):
+def _library(library: str):
     from ilqr_tpu_torch.ops import _build
 
-    fn = getattr(_build.load(LIBRARY[name]), name)
+    return _build.load(library)
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong]
+             + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+             + [ctypes.c_void_p] * 2)
+
+
+def _launcher(name: str, library: str):
+    fn = getattr(_library(library), name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_shapes(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN):
-    if As.ndim != 4 or As.shape[1] != As.shape[2]:
-        raise ValueError(f"As must be [T, n, n, B], got {tuple(As.shape)}")
-    T, n, _, B = As.shape
-    if Bs.ndim != 4:
-        raise ValueError(f"Bs must be [T, n, m, B], got {tuple(Bs.shape)}")
-    m = Bs.shape[2]
-    want = {"Bs": (Bs, (T, n, m, B)), "qx": (qx, (T, n, B)),
-            "ru": (ru, (T, m, B)), "Qxx": (Qxx, (T, n, n, B)),
-            "Pux": (Pux, (T, m, n, B)), "Ruu": (Ruu, (T, m, m, B)),
-            "qxN": (qxN, (n, B)), "QN": (QN, (n, n, B))}
-    for name, (x, shape) in want.items():
+def _shapes(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, layout):
+    """``(T, n, m, B)`` of a set of inputs in ``layout``; raises on a
+    shape that does not fit it."""
+
+    if As.ndim != 4 or Bs.ndim != 4:
+        raise ValueError("As and Bs must be 4-d, got "
+                         f"{tuple(As.shape)} and {tuple(Bs.shape)}")
+    if layout == BATCH_LAST:
+        T, n, _, B = As.shape
+        m = Bs.shape[2]
+        want = {"As": (T, n, n, B), "Bs": (T, n, m, B), "qx": (T, n, B),
+                "ru": (T, m, B), "Qxx": (T, n, n, B), "Pux": (T, m, n, B),
+                "Ruu": (T, m, m, B), "qxN": (n, B), "QN": (n, n, B)}
+        kind = "batch-last"
+    else:
+        B, T, n, _ = As.shape
+        m = Bs.shape[3]
+        want = {"As": (B, T, n, n), "Bs": (B, T, n, m), "qx": (B, T, n),
+                "ru": (B, T, m), "Qxx": (B, T, n, n), "Pux": (B, T, m, n),
+                "Ruu": (B, T, m, m), "qxN": (B, n), "QN": (B, n, n)}
+        kind = "batch-first"
+    for (name, shape), x in zip(want.items(),
+                                (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)):
         if tuple(x.shape) != shape:
             raise ValueError(
-                f"{name} must be {shape} (batch-last), got {tuple(x.shape)}")
+                f"{name} must be {shape} ({kind}), got {tuple(x.shape)}")
     return T, n, m, B
 
 
-def _launch(arrays, reg, symmetrize):
-    """Launch the kernel on contiguous batch-last CUDA ``arrays``; returns
-    ``(launcher name, (duffs, Ks, dv1, dv2))``."""
+def _launch(arrays, reg, symmetrize, layout, clocks=None):
+    """Launch the kernel on CUDA ``arrays`` in ``layout``, contiguous;
+    returns ``(launcher name, (duffs, Ks, dv1, dv2))`` in the same layout.
+    With ``clocks`` (an int64 tensor ``[B, stages]``) the stage-clock build
+    of the source runs instead, uncounted."""
 
     As = arrays[0]
-    T, n, m, B = _check_shapes(*arrays)
+    T, n, m, B = _shapes(*arrays, layout)
     if any(x.device != As.device or x.dtype != As.dtype for x in arrays):
         raise ValueError("all inputs must share one device and one dtype")
     if As.device.type != "cuda":
@@ -143,23 +180,33 @@ def _launch(arrays, reg, symmetrize):
     name = kernel_name(n, m, As.dtype)
     for x in arrays:
         if not x.is_contiguous():
-            raise ValueError("inputs must be contiguous batch-last tensors")
+            raise ValueError("inputs must be contiguous")
 
     reg_b = torch.as_tensor(reg, dtype=As.dtype, device=As.device)
-    reg_b = reg_b.expand(B).contiguous()
-    duffs = torch.empty((T, m, B), dtype=As.dtype, device=As.device)
-    Ks = torch.empty((T, m, n, B), dtype=As.dtype, device=As.device)
-    dv1 = torch.empty((B,), dtype=As.dtype, device=As.device)
-    dv2 = torch.empty((B,), dtype=As.dtype, device=As.device)
+    if reg_b.shape != (B,) or not reg_b.is_contiguous():
+        reg_b = reg_b.expand(B).contiguous()
+    kw = dict(dtype=As.dtype, device=As.device)
+    if layout == BATCH_LAST:
+        duffs, Ks = torch.empty((T, m, B), **kw), torch.empty((T, m, n, B), **kw)
+    else:
+        duffs, Ks = torch.empty((B, T, m), **kw), torch.empty((B, T, m, n), **kw)
+    dv1, dv2 = torch.empty((B,), **kw), torch.empty((B,), **kw)
 
-    fn = _launcher(name)
+    path = ctypes.c_int(-1)
+    library = LIBRARY[name] + ("_clocks" if clocks is not None else "")
+    fn = _launcher(name, library)
+    ptrs = (ctypes.c_void_p * 7)(*(x.data_ptr() for x in arrays[:7]))
     with torch.cuda.device(As.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(x.data_ptr() for x in arrays), reg_b.data_ptr(),
-                 duffs.data_ptr(), Ks.data_ptr(), dv1.data_ptr(),
-                 dv2.data_ptr(), T, B, int(bool(symmetrize)), stream)
+        err = fn(ptrs, arrays[7].data_ptr(), arrays[8].data_ptr(),
+                 reg_b.data_ptr(), duffs.data_ptr(), Ks.data_ptr(),
+                 dv1.data_ptr(), dv2.data_ptr(), T, B, int(bool(symmetrize)),
+                 layout, ctypes.byref(path),
+                 None if clocks is None else clocks.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    last_launch.update(kernel=name, layout=layout,
+                       copy_path=COPY_PATHS[path.value])
     return name, (duffs, Ks, dv1, dv2)
 
 
@@ -175,13 +222,13 @@ def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
     """
 
     arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
-    _check_shapes(*arrays)
+    _shapes(*arrays, BATCH_LAST)
     if any(x.device != As.device or x.dtype != As.dtype for x in arrays):
         raise ValueError("all inputs must share one device and one dtype")
     if As.device.type == "cpu":
         # Any (n, m): the plain version is not instantiated.
         return riccati_scan_plain_bl(*arrays, reg, symmetrize=symmetrize)
-    name, outs = _launch(arrays, reg, symmetrize)
+    name, outs = _launch(arrays, reg, symmetrize, BATCH_LAST)
     launch_counts[name] += 1
     return outs
 
@@ -196,11 +243,20 @@ def to_batch_last(arrays):
 def from_batch_last(outs):
     """The recursion's batch-last outputs ``(duffs [T,m,B], Ks [T,m,n,B],
     dv1 [B], dv2 [B])`` as batch-first views ``([B,T,m], [B,T,m,n], [B],
-    [B])``, without a copy (a step's ``[B, m]`` slice of such a view reads
-    consecutive lanes from consecutive addresses)."""
+    [B])``, without a copy."""
 
     duffs, Ks, dv1, dv2 = outs
     return duffs.movedim(-1, 0), Ks.movedim(-1, 0), dv1, dv2
+
+
+def as_kernel_input(x):
+    """``x`` itself when it is contiguous and 16-byte aligned, as every
+    tensor PyTorch allocates is; else a contiguous, aligned copy (a view
+    with an offset, an expanded constant)."""
+
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def riccati_scan_cuda_batched(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
@@ -208,16 +264,17 @@ def riccati_scan_cuda_batched(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
     """The batch-first entry: the same recursion on ``As [B, T, n, n]``,
     ``Bs [B, T, n, m]``, ``qx [B, T, n]``, ``ru [B, T, m]``, ``Qxx [B, T,
     n, n]``, ``Pux [B, T, m, n]``, ``Ruu [B, T, m, m]``, ``qxN [B, n]``,
-    ``QN [B, n, n]``, ``reg`` scalar or ``[B]``; returns ``(duffs [B, T,
-    m], Ks [B, T, m, n], dv1 [B], dv2 [B])``.
+    ``QN [B, n, n]``, ``reg`` scalar or ``[B]``; returns contiguous
+    ``(duffs [B, T, m], Ks [B, T, m, n], dv1 [B], dv2 [B])``.
 
-    A layout wrapper, as the JAX entry is: the inputs are copied batch-last
-    (:func:`to_batch_last`; the kernel never reads batch-first memory, where
-    neighbouring lanes lie ``T n n`` values apart and no load would
-    coalesce), the kernel of :func:`riccati_scan_cuda_bl` runs, and the
-    outputs come back as batch-first views.  Unlike the JAX entry, the batch
-    is not padded.  CUDA tensors: launches or raises, as the batch-last
-    wrapper does; CPU tensors: :func:`riccati_scan_plain_batched`.
+    CUDA tensors: the kernel reads the batch-first layout where it lies (a
+    lane's step is a contiguous block of each input) and writes its outputs
+    in it: no layout copy, nothing allocated beyond the outputs, unless an
+    input is not contiguous and 16-byte aligned (:func:`as_kernel_input`)
+    or ``reg`` is not a contiguous ``[B]`` tensor of the inputs' type.
+    Launches or raises, as the batch-last wrapper does.  Unlike the JAX
+    entry, the batch is not padded.  CPU tensors:
+    :func:`riccati_scan_plain_batched`.
     """
 
     arrays = (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)
@@ -226,9 +283,34 @@ def riccati_scan_cuda_batched(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
                          f"(batch-first), got {[tuple(x.shape) for x in arrays]}")
     if As.device.type == "cpu":
         return riccati_scan_plain_batched(*arrays, reg, symmetrize=symmetrize)
-    name, outs = _launch(to_batch_last(arrays), reg, symmetrize)
+    arrays = tuple(as_kernel_input(x) for x in arrays)
+    name, outs = _launch(arrays, reg, symmetrize, BATCH_FIRST)
     batched_launch_counts[name] += 1
-    return from_batch_last(outs)
+    return outs
+
+
+STAGES = {"riccati": ("copy_issue_wait", "smem_load", "gains", "value"),
+          # Stage 3 split by warp 0's parts: the Cholesky, the solves, W and
+          # H duff, the dv sums, then the wait for warps 1.. (A'(SA) and the
+          # repack of the next step).
+          "riccati_wide": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd", "dv",
+                           "P_repack_wait", "copy_issue", "value")}
+
+
+def riccati_stage_clocks(arrays, reg, layout=BATCH_LAST):
+    """Cycles a step by stage, from the source built with
+    ``-DRICCATI_STAGE_CLOCKS`` (never on the main path, never counted):
+    ``{stage: mean over the valid lanes of clock64() cycles / T}``, each
+    stage ending where its last barrier lets the lane's thread 0 through."""
+
+    T, n, m, B = _shapes(*arrays, layout)
+    name = kernel_name(n, m, arrays[0].dtype)
+    stages = STAGES[LIBRARY[name]]
+    clocks = torch.zeros((B, len(stages)), dtype=torch.int64,
+                         device=arrays[0].device)
+    _launch(arrays, reg, True, layout, clocks=clocks)
+    per_step = clocks.double().mean(dim=0) / max(T, 1)
+    return dict(zip(stages, per_step.tolist()))
 
 
 def riccati_loop_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
