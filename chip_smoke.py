@@ -50,17 +50,18 @@ Phases, one JSON line each:
                 6-DoF arm), float32 also against a float64 run of the same
                 inputs; then the times (also at the cut solve's T=100), the
                 ``(16, 8)`` float32 cycles a step by stage, and one whole
-                pass at that depth
-                from the same iterate: ``derivatives_bl``, the kernel, and a
-                ``forward_pass_bl`` whose ladder is capped at three rungs.
+                pass at the cut solve's T=100 from a rolled-out iterate:
+                ``derivatives_bl``, the kernel, and a ``forward_pass_bl``
+                whose ladder is capped at three rungs.
 7. ``rbd_solve``    the second main path, what ``bench.py --config rbd`` runs
                 in the JAX package: the floating-base 2-DoF arm (n=16, m=8),
                 B=256, float32, Tassa regularization, through
                 ``make_chunked_batch_solver`` (``iter_chunk=10``,
-                ``compact_sizes=(128,)``) with the ``(16, 8)`` kernel.  The
-                solve runs at the reference's T=1000 if five passes of the
-                times measured there fit the budget, else at T=100 with
-                ``max_iter=15``, and stops at a chunk boundary once half the
+                ``compact_sizes=(128,)``, host snapshots every 4 chunks as
+                ``bench.py`` takes them) with the ``(16, 8)`` kernel.  The
+                solve runs at the reference's T=1000 if five passes (ten
+                times the pass timed at T=100) fit the budget, else at T=100
+                with ``max_iter=15``, and stops at a chunk boundary once half the
                 budget is spent.  Counts are set to 0 before and read after;
                 then the same passes with ``backward_backend="scan"``.  The
                 two backends are held to each other after ONE pass from the
@@ -103,6 +104,32 @@ Phases, one JSON line each:
                 ``batch_mpc_run`` (B=1024, H=50, with the kernel, so every
                 iteration of every replan launches the batch-first entry);
                 ``n_steps`` cut from 50 to MPC_BUDGET_S, the cut printed.
+14. ``resilience``  phase ``solve``'s chunked solve (``iter_chunk=2``)
+                against itself retried after a ``torch.AcceleratorError``
+                injected before chunk 2 (``snapshot_every=1``) and resumed by
+                a fresh solver from the ``snapshot_path`` file a kill before
+                chunk 2 left: ``torch.equal`` in ``us``, ``status`` and
+                ``iterations``, the file gone after; again with compaction.
+                (``rbd_solve`` runs ``bench.py``'s ``snapshot_every=4``.)
+15. ``mpc_chunked``  ``batch_mpc_run_chunked`` (B=1024, H=50, the kernel),
+                ``n_steps`` cut to a budget, stopped after the first chunk
+                and resumed from its checkpoint: equal to ``batch_mpc_run``.
+16. ``long_horizon``  ``bench.py --config long_horizon`` (B=256, T=1000)
+                through ``engine="vmap"`` with ``scan``, ``pallas`` and
+                ``associative``, ``max_iter`` cut to a budget; the float64
+                associative backward pass (B=8, T=200) card against CPU.
+17. ``parallel_alpha``  phase ``solve``'s fused solve with
+                ``parallel_alpha_block`` 4 and 8: the sequential ladder's
+                status, iterations and alpha on every lane, ``us`` equal
+                (or within 1e-6 of max|us|); ladder seconds and rungs a pass.
+18. ``al``      ``al_solve`` of the 2-link in a control box with a velocity
+                cap (B=1024, T=100, float32, the kernel at ``(5, 2)``: the
+                state carries the step index); the largest violation at or
+                below the target; float64 B=4 card against CPU; the
+                ``(5, 2)`` kernel against its plain version, timed.
+19. ``trace_profile``  ``solve_with_trace`` of one float64 scenario, one
+                fused pass under ``device_trace`` (the trace names the
+                Riccati kernel) and ``PhaseTimer``'s summary.
 
 Then one line with every kernel's numbers (the batch-first entry in rows of
 its own, at each instantiation its path launched), and the last line
@@ -149,7 +176,12 @@ SOLVE_BUDGET_S = 150.0
 COMPACT_SIZES = (3072, 2048, 512, 128)
 
 
+# (phase, host clock) of every line printed: the seconds of each phase.
+EMITTED = []
+
+
 def emit(**kw):
+    EMITTED.append((kw.get("phase"), time.perf_counter()))
     print(json.dumps(kw), flush=True)
 
 
@@ -584,7 +616,9 @@ def phase_solve(problem, config, device):
 # ---------------------------------------------------------------------------
 
 WIDE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_wide.cu"
-RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=15, max_iter=100)
+# snapshot_every: bench.py --config rbd's default (bench.py:388).
+RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=15, max_iter=100,
+           snapshot_every=4)
 SIX = dict(B=64, T=50, max_iter=15)
 # Seconds the RBD solve and its scan twin may take together: decides T, and
 # stops the solve at a chunk boundary (10 passes) once half of it is spent.
@@ -824,9 +858,21 @@ def phase_rbd_kernels(cases, device):
                 bound_by=bound_by, library_ms=None, **extra, **vs_truth)
             if dtype == torch.float32:
                 one_pass[tag]["riccati_s"] = ms / 1e3
-                if full is RBD:
-                    one_pass[tag].update(time_forward_pass(
-                        case[0], xs, us, kern, rbd_config(1, T)))
+                if full is not RBD:
+                    continue
+                # One whole pass at the cut solve's depth (the ladder of a
+                # T=1000 pass took over a minute of the script's budget).
+                cut = dict(B=B, T=RBD["T_cut"])
+                mc, xc, uc = rbd_local_models(case, B, RBD["T_cut"],
+                                              torch.float32, 61, device,
+                                              timings=cut)
+                kc = riccati_scan_cuda_bl(*mc, reg, symmetrize=True)
+                cut["riccati_s"] = device_time(
+                    lambda: riccati_scan_cuda_bl(*mc, reg), 30) / 1e3
+                cut.update(time_forward_pass(case[0], xc, uc, kc,
+                                             rbd_config(1, RBD["T_cut"])))
+                one_pass[f"{tag}_T{RBD['T_cut']}"] = cut
+                del mc, xc, uc, kc
         del plain, truth, kern
         del m32, m64, xs, us
     emit(phase="rbd_kernels", kernels=sorted(rows), f64_rtol=1e-10,
@@ -835,7 +881,7 @@ def phase_rbd_kernels(cases, device):
          copy_paths=paths, stage_cycles_per_step=stage,
          kernel_vs_plain_slack=KERNEL_VS_PLAIN_SLACK,
          at_main_path_shapes=rows, one_pass_float32_s=one_pass)
-    return rows, one_pass["16x8"]
+    return rows, one_pass[f"16x8_T{RBD['T_cut']}"]
 
 
 def check_rbd_result(res, cost0, B, T, n, m, dtype):
@@ -892,10 +938,11 @@ def compare_first_pass(one_k, one_s):
     return compare_backends(one_k, one_s, F32_FIRST_PASS_REL_BOUND_RBD)
 
 
-def phase_rbd_solve(case, device, one_pass_full):
-    """``one_pass_full``: seconds of ``derivatives_bl``, the Riccati kernel
-    and ``forward_pass_bl`` at the reference's T=1000, from the
-    ``rbd_kernels`` phase."""
+def phase_rbd_solve(case, device, one_pass_cut):
+    """``one_pass_cut``: seconds of ``derivatives_bl``, the Riccati kernel
+    and ``forward_pass_bl`` at T=RBD["T_cut"], from the ``rbd_kernels``
+    phase; a pass at the reference's T=1000 is taken as T/T_cut times as
+    long (the sweep, the recursion and every rung are linear in T)."""
 
     from ilqr_tpu_torch import batched
     from ilqr_tpu_torch.ops import cuda_riccati
@@ -907,8 +954,8 @@ def phase_rbd_solve(case, device, one_pass_full):
     # A pass is the derivative sweep, the recursion and the forward pass;
     # five of them and their scan twins must fit the budget.
     T, max_iter = RBD["T_cut"], RBD["max_iter_cut"]
-    pass_s = (one_pass_full["derivatives_s"] + one_pass_full["riccati_s"]
-              + one_pass_full["forward_pass_s"])
+    pass_s = (one_pass_cut["derivatives_s"] + one_pass_cut["riccati_s"]
+              + one_pass_cut["forward_pass_s"]) * RBD["T"] / RBD["T_cut"]
     if 2 * 5 * pass_s <= RBD_BUDGET_S:
         T = RBD["T"]
         max_iter = min(RBD["max_iter"], int(RBD_BUDGET_S / (2 * pass_s)))
@@ -930,7 +977,8 @@ def phase_rbd_solve(case, device, one_pass_full):
 
         solve_fn = batched.make_chunked_batch_solver(
             problem, rbd_config(passes_cap, T, backend), iter_chunk=10,
-            compact_sizes=(128,), device=device, on_chunk=on_chunk)
+            compact_sizes=(128,), device=device, on_chunk=on_chunk,
+            snapshot_every=RBD["snapshot_every"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = solve_fn(xs0, us0)
@@ -956,7 +1004,8 @@ def phase_rbd_solve(case, device, one_pass_full):
               flush=True)
 
     emit(phase="rbd_solve", B=B, T=T, n=n, m=m, dtype="float32",
-         max_iter=max_iter, one_pass_at_T1000_s=one_pass_full,
+         max_iter=max_iter, snapshot_every=RBD["snapshot_every"],
+         one_pass_at_T_cut_s=one_pass_cut,
          passes=passes,
          launches=counts, solve_s=solve_s, chunks=chunks,
          compaction_fired=compacted, lanes_by_status=by_status,
@@ -1148,10 +1197,9 @@ def phase_batched_entry(problem, cases, device):
     in place), so there is no copy to time.  Then the wide kernel at the
     ragged batches of ``RAGGED_BATCH_FIRST``, both types, held the same way
     (float64 elementwise, as ``check_kernel``), with the copy path each
-    launch reports."""
+    launch reports.  (:func:`batch_first_rows` holds and times a shape.)"""
 
     from ilqr_tpu_torch.ops.cuda_riccati import (from_batch_last,
-                                                 kernel_name,
                                                  riccati_scan_cuda_batched,
                                                  riccati_scan_cuda_bl,
                                                  riccati_scan_plain_batched,
@@ -1161,63 +1209,8 @@ def phase_batched_entry(problem, cases, device):
     for (n, m), B, T in BATCH_FIRST_SHAPES:
         source = problem if n == N else cases[n == 24]
         m32 = batch_first_models(source, n, B, T, torch.float32, device)
-        for dtype in (torch.float32, torch.float64):
-            bf = tuple(x.to(dtype) for x in m32)
-            reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
-            got = riccati_scan_cuda_batched(*bf, reg)
-            bl = to_batch_last(bf)
-            same = from_batch_last(riccati_scan_cuda_bl(*bl, reg))
-            torch.cuda.synchronize()
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            plain = riccati_scan_plain_batched(*bf, reg)
-            b.record()
-            torch.cuda.synchronize()
-            plain_ms = a.elapsed_time(b)
-            if dtype == torch.float64:
-                bound = 1e-10
-            else:
-                bound = F32_REL_BOUND if n == N else F32_REL_BOUND_RBD
-            # One more call: the device memory it asks for beyond what was
-            # allocated before, against its outputs.  Bytes as requested:
-            # the allocator may hand out a cached block somewhat larger.
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            key = "requested_bytes.all"
-            before = torch.cuda.memory_stats()[f"{key}.current"]
-            outs = riccati_scan_cuda_batched(*bf, reg)
-            torch.cuda.synchronize()
-            extra = torch.cuda.memory_stats()[f"{key}.peak"] - before
-            out_bytes = sum(x.numel() * x.element_size() for x in outs)
-            assert extra <= out_bytes, ((n, m), str(dtype), extra, out_bytes)
-            del outs
-            max_abs, max_rel = 0.0, 0.0
-            for name, g, e, p in zip(("duffs", "Ks", "dv1", "dv2"), got,
-                                     same, plain):
-                assert g.shape == p.shape and g.dtype == p.dtype, name
-                assert g.shape[0] == B, (name, g.shape)
-                assert g.is_contiguous(), name
-                assert torch.equal(g, e), f"{name}: batch-first != batch-last"
-                assert bool(torch.isfinite(g).all()), f"{name}: not finite"
-                r = rel_err(g, p)
-                assert r <= bound, ((n, m), str(dtype), name, r, bound)
-                max_abs = max(max_abs, float((g - p).abs().max()))
-                max_rel = max(max_rel, r)
-            bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
-            rows[kernel_name(n, m, dtype)] = dict(
-                n=n, m=m, B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel,
-                rel_bound=bound, equal_to_batch_last=True,
-                allocated_bytes=extra, output_bytes=out_bytes,
-                ms=device_time(lambda: riccati_scan_cuda_batched(*bf, reg),
-                               30),
-                call_ms=sync_time(lambda: riccati_scan_cuda_batched(*bf, reg),
-                                  30),
-                batch_last_ms=device_time(
-                    lambda: riccati_scan_cuda_bl(*bl, reg), 30),
-                layout_copies="none",
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
-            del got, same, plain, bl, bf
+        rows.update(batch_first_rows(
+            m32, n, m, B, T, F32_REL_BOUND if n == N else F32_REL_BOUND_RBD))
         del m32
 
     ragged = {}
@@ -1496,6 +1489,670 @@ def phase_mpc(problem, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The fifth slice: snapshots, resume and retry; checkpointed fleet MPC; the
+# parallel-in-time backward pass at T=1000; the parallel-alpha ladder; the
+# augmented Lagrangian; traces and profiling.
+# ---------------------------------------------------------------------------
+
+# Files the new phases write (git-ignored, inside the checkout).
+SCRATCH = "build/chip_smoke"
+MPC_CHUNKED = dict(B=1024, H=50, step_chunk=2)
+MPC_CHUNKED_BUDGET_S = 30.0
+# bench.py --config long_horizon: B=256, T=1000, max_iter=15, three backends.
+LONG = dict(B=256, T=1000, max_iter=15)
+# Seconds the three long-horizon solves may take together; caps max_iter.
+LONG_BUDGET_S = 120.0
+# Float64 associative backward pass, card against the plain torch pit on
+# the CPU: the rtol of tests/test_torch_pit.py.
+LONG_F64 = dict(B=8, T=200, rtol=1e-9)
+PARALLEL_ALPHA_BLOCKS = (4, 8)
+# The largest |us| difference of the parallel-alpha solve from the
+# sequential one, relative to max|us|, where the card's batched shapes round
+# differently (printed; 0 where they agree bit for bit).
+PARALLEL_ALPHA_REL_BOUND = 1e-6
+# al_solve of the 2-link: a control box by squashing, a joint-velocity cap
+# by the augmented Lagrangian.  Without the cap the swing-up's joints reach
+# about 3 rad/s and its torques stay under 1.5.  Inner solves of at most 10
+# passes with adaptive regularization: with a fixed reg their ladders run out
+# against the penalty's kinks (the JAX package's al_solve does the same).
+# A ladder of 4 rungs: a ladder that runs out raises reg for the next pass,
+# and with the default 32 rungs one such lane makes the whole batch roll out
+# 32 times (ROADMAP.md C12), which here happens nearly every pass.
+AL = dict(B=1024, T=100, u_max=1.5, v_max=2.5, max_outer=10, max_iter=10,
+          max_backtracks=4)
+AL_F64 = dict(B=4, T=24, rtol=1e-8)
+TRACE = dict(T=50, max_iter=15)
+
+
+class Killed(Exception):
+    """Stands for whatever ends a process in the middle of a solve."""
+
+
+class FaultAt:
+    """``_fault_hook``: raises ``exc`` once, before chunk ``at``."""
+
+    def __init__(self, at, exc):
+        self.at, self.exc, self.calls = at, exc, []
+
+    def __call__(self, chunk_idx):
+        self.calls.append(chunk_idx)
+        if chunk_idx == self.at and self.calls.count(self.at) == 1:
+            raise self.exc
+
+
+def scratch_path(name):
+    """A fresh path under SCRATCH (an earlier run's file or directory of the
+    name removed)."""
+
+    import pathlib
+    import shutil
+
+    d = pathlib.Path(__file__).resolve().parent / SCRATCH
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / name
+    if path.is_dir():
+        shutil.rmtree(path)
+    elif path.exists():
+        path.unlink()
+    return path
+
+
+def phase_resilience(problem, cfg, device):
+    """Phase ``solve``'s chunked solve (B=4096, T=100, float32,
+    ``iter_chunk=2``), uninterrupted, against the same solve with a device
+    error injected before chunk 2 and retried from a host snapshot, and
+    against the same solve killed before chunk 2 and resumed from its
+    snapshot file by a fresh solver: ``torch.equal`` in ``us``, ``status``
+    and ``iterations``; then all of it again with compaction."""
+
+    from ilqr_tpu_torch.batched import make_chunked_batch_solver, rollout_bl
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    B, T = HEADLINE["B"], HEADLINE["T"]
+    x0s, us0 = scenario_inputs(B, T, torch.float32, 0, device)
+    xs0 = rollout_bl(problem, x0s.T.contiguous(),
+                     us0.movedim(0, -1).contiguous()).movedim(-1, 0)
+    xs0 = xs0.contiguous()
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+
+    def solve(**kw):
+        solve_fn = make_chunked_batch_solver(problem, cfg, iter_chunk=2,
+                                             device=device, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_fn(xs0, us0)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def same(a, b):
+        for f in ("us", "status", "iterations"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        return True
+
+    out = {}
+    launches = 0
+    for tag, sizes in (("full", ()), ("compacted", COMPACT_SIZES)):
+        ref, ref_s = solve(compact_sizes=sizes)
+        # The path under test is the retried, the killed and the resumed
+        # solve: counts set to 0 after the reference, read after the resume.
+        cuda_riccati.reset_launch_counts()
+        hook = FaultAt(2, torch.AcceleratorError("injected device error"))
+        retried, retried_s = solve(compact_sizes=sizes, snapshot_every=1,
+                                   _fault_hook=hook)
+        assert hook.calls.count(2) == 2, hook.calls
+        same(retried, ref)
+        path = scratch_path(f"resilience_{tag}.npz")
+        try:
+            solve(compact_sizes=sizes, snapshot_path=str(path),
+                  _fault_hook=FaultAt(2, Killed()))
+            raise AssertionError("the injected kill did not stop the solve")
+        except Killed:
+            pass
+        assert path.exists()
+        resumed, resumed_s = solve(compact_sizes=sizes,
+                                   snapshot_path=str(path))
+        assert not path.exists()
+        counts = dict(cuda_riccati.launch_counts)
+        assert counts[name] >= 1 and sum(counts.values()) == counts[name], (
+            tag, counts)
+        launches += counts[name]
+        same(resumed, ref)
+        out[tag] = dict(compact_sizes=list(sizes), launches=counts[name],
+                        solve_s=ref_s,
+                        retried_solve_s=retried_s, resumed_solve_s=resumed_s,
+                        passes=int(ref.iterations.max()),
+                        retry_equal=True, resume_equal=True,
+                        file_left_by_the_kill=True,
+                        file_removed_after_resume=True)
+    emit(phase="resilience", B=B, T=T, dtype="float32", iter_chunk=2,
+         fault_at_chunk=2, launches={name: launches}, **out)
+    return {name: launches}
+
+
+def phase_mpc_chunked(problem, device):
+    """``batch_mpc_run_chunked`` (B=1024, H=50, the kernel on): ``n_steps``
+    cut to a budget, in chunks of ``step_chunk``; stopped after the first
+    chunk and resumed from its checkpoint; equal (``torch.equal``) to
+    ``batch_mpc_run`` at the same ``n_steps``."""
+
+    from ilqr_tpu_torch.config import ILQRConfig
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.mpc import (batch_mpc_run,
+                                             batch_mpc_run_chunked)
+
+    B, H, chunk = MPC_CHUNKED["B"], MPC_CHUNKED["H"], MPC_CHUNKED["step_chunk"]
+    cfg = ILQRConfig(max_iter=10, tol=1e-5, tol_grad=1e-10,
+                     tol_grad_rel=1e-6, backward_backend="pallas")
+    x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], dtype=torch.float32)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x0s = (x0 + 0.1 * torch.randn((B, N), generator=gen)).to(device)
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(problem, x0s, H, *a, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # One chunk to size the run: the reference, the stopped run and the
+    # resumed one make three runs of n_steps.
+    _, chunk_s = timed(batch_mpc_run, chunk, cfg, device=device)
+    n_steps = max(2 * chunk, chunk * int(
+        MPC_CHUNKED_BUDGET_S / (3 * chunk_s)))
+    n_steps = min(n_steps, MPC["n_steps"] // chunk * chunk)
+    if n_steps < MPC["n_steps"]:
+        print(f"chip_smoke: mpc_chunked: n_steps cut from {MPC['n_steps']} "
+              f"to {n_steps} by the {MPC_CHUNKED_BUDGET_S} s budget",
+              file=sys.stderr, flush=True)
+
+    path = scratch_path("mpc_chunked.npz")
+    ref, ref_s = timed(batch_mpc_run, n_steps, cfg, device=device)
+    # The path under test is the stopped and the resumed run: counts set
+    # to 0 after the reference, read after the resume.
+    cuda_riccati.reset_launch_counts()
+    stops = []
+    part, part_s = timed(batch_mpc_run_chunked, n_steps, cfg,
+                         step_chunk=chunk, checkpoint_path=str(path),
+                         on_chunk=lambda step: stops.append(step) or True,
+                         device=device)
+    assert stops == [chunk] and path.exists()
+    res, resumed_s = timed(batch_mpc_run_chunked, n_steps, cfg,
+                           step_chunk=chunk, checkpoint_path=str(path),
+                           device=device)
+    launches = count_batch_first(name)
+    assert launches >= 1, launches
+    for f in res._fields:
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+    assert torch.equal(part.us[:, :chunk], ref.us[:, :chunk])
+    path.unlink()
+    emit(phase="mpc_chunked", B=B, horizon=H, step_chunk=chunk,
+         n_steps=n_steps, n_steps_config=MPC["n_steps"],
+         budget_s=MPC_CHUNKED_BUDGET_S, backward_backend="pallas",
+         batch_first_launches={name: launches},
+         equal_to_batch_mpc_run=True, stopped_after_steps=stops,
+         resumed_steps=n_steps - chunk,
+         ms_per_replan=resumed_s / (n_steps - chunk) * 1e3,
+         ms_per_replan_batch_mpc_run=ref_s / n_steps * 1e3,
+         first_chunk_s=part_s)
+    return {name: launches}
+
+
+def phase_long_horizon(problem, device):
+    """``bench.py --config long_horizon`` (2-link, B=256, T=1000,
+    ``max_iter=15``) through ``engine="vmap"`` — ``"associative"`` exists
+    in the per-scenario engine only (``ROADMAP.md`` C1) — with ``scan``,
+    ``pallas`` and ``associative`` in turn, ``max_iter`` cut to a budget;
+    then the float64 associative backward pass on the card against the
+    plain torch ``pit`` on the CPU."""
+
+    from ilqr_tpu_torch.backward import backward_pass
+    from ilqr_tpu_torch.config import ILQRConfig, Status
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.batching import make_batch_solver
+    from ilqr_tpu_torch.problem import problem_dynamics, rollout
+
+    B, T = LONG["B"], LONG["T"]
+    x0s, us0 = scenario_inputs(B, T, torch.float32, 7, device)
+    base = ILQRConfig(max_iter=LONG["max_iter"], tol=1e-5, tol_grad=1e-10,
+                      tol_grad_rel=1e-6, reg=1e-2)
+    backends = ("scan", "pallas", "associative")
+
+    def run(cfg):
+        solve_fn = make_batch_solver(problem, cfg, engine="vmap",
+                                     device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_fn(x0s, us0)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    one = {b: run(base.replace(max_iter=1, backward_backend=b))[1]
+           for b in backends}
+    # A later pass climbs more rungs than the first: count it twice.
+    cap = max(2, min(LONG["max_iter"],
+                     int(LONG_BUDGET_S / (2 * sum(one.values())))))
+    if cap < LONG["max_iter"]:
+        print(f"chip_smoke: long_horizon: max_iter cut from "
+              f"{LONG['max_iter']} to {cap} by the {LONG_BUDGET_S} s budget",
+              file=sys.stderr, flush=True)
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+    rows, results, launches = {}, {}, 0
+    for backend in backends:
+        cuda_riccati.reset_launch_counts()
+        res, solve_s = run(base.replace(max_iter=cap,
+                                        backward_backend=backend))
+        passes = int(res.iterations.max())
+        if backend == "pallas":
+            launches = count_batch_first(name)
+            assert launches == passes >= 1, (launches, passes)
+        else:
+            assert cuda_riccati.launches() == 0
+        assert res.us.shape == (B, T, M) and res.us.dtype == torch.float32
+        for f in (res.xs, res.us, res.cost):
+            assert bool(torch.isfinite(f).all()), backend
+        results[backend] = res
+        rows[backend] = dict(
+            solve_s=solve_s, solves_per_s=B / solve_s, passes=passes,
+            one_pass_s=one[backend],
+            lanes_converged=int((res.status == int(Status.CONVERGED)).sum()),
+            mean_cost=float(res.cost.mean()))
+    # The kernel against the scan it replaces, over the cut solve.
+    same = results["pallas"].iterations == results["scan"].iterations
+    rows["pallas"]["us_rel_diff_from_scan_same_lanes"] = float(
+        (results["pallas"].us[same] - results["scan"].us[same]).abs().max()
+        / results["scan"].us.abs().max())
+    rows["pallas"]["lanes_same_iterations_as_scan"] = float(
+        same.float().mean())
+
+    # Float64: the associative backward pass on the card against the CPU.
+    Bf, Tf = LONG_F64["B"], LONG_F64["T"]
+    x64, _ = scenario_inputs(Bf, Tf, torch.float64, 8, "cpu")
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    u64 = 0.3 * torch.randn((Bf, Tf, M), generator=gen, dtype=torch.float64)
+    xs64 = rollout(lambda x, u: problem_dynamics(problem, x, u), x64, u64)
+    cfg64 = base.replace(backward_backend="associative")
+    cpu = backward_pass(problem, xs64, u64, cfg64)
+    gpu = backward_pass(problem, xs64.to(device), u64.to(device), cfg64)
+    f64 = {}
+    for fname, g, c in zip(cpu._fields, gpu, cpu):
+        torch.testing.assert_close(g.cpu(), c, rtol=LONG_F64["rtol"],
+                                   atol=1e-12, msg=fname)
+        f64[fname] = rel_err(g.cpu(), c)
+    emit(phase="long_horizon", B=B, T=T, dtype="float32", engine="vmap",
+         engine_reason="'associative' exists only in the per-scenario engine",
+         max_iter=cap, max_iter_config=LONG["max_iter"],
+         budget_s=LONG_BUDGET_S, backends=rows,
+         batch_first_launches={name: launches},
+         f64_associative_card_vs_cpu=dict(B=Bf, T=Tf, rtol=LONG_F64["rtol"],
+                                          rel_diff=f64))
+    return {name: launches}
+
+
+def phase_parallel_alpha(problem, cfg, seq, device):
+    """The fused solve of phase ``solve`` (``seq``, its result with config
+    ``cfg``) with ``parallel_alpha_block`` 4, then 8: the same status,
+    iterations and alpha on every lane, ``us`` equal (or within
+    PARALLEL_ALPHA_REL_BOUND of max|us|, printed); the ladder's seconds and
+    rungs a pass beside the sequential ladder's."""
+
+    from ilqr_tpu_torch import batched
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.batching import make_batch_solver
+
+    B, T = HEADLINE["B"], HEADLINE["T"]
+    x0s, us0 = scenario_inputs(B, T, torch.float32, 0, device)
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+
+    def run(cfg_run):
+        """The solve, with the seconds in its ladder and the rollouts the
+        ladder ran (a rung each, sequential; R rungs each, parallel)."""
+
+        R = max(cfg_run.parallel_alpha_block, 1)
+        ladder = "forward_pass_bl" if R == 1 else "forward_pass_bl_parallel"
+        rollouts = [0]
+        original = batched.closed_loop_rollout_bl
+
+        def counting(*a, **kw):
+            rollouts[0] += 1
+            return original(*a, **kw)
+
+        batched.closed_loop_rollout_bl = counting
+        try:
+            with phase_clock({"ladder": [(batched, ladder)]}) as spent:
+                solve_fn = make_batch_solver(problem, cfg_run, engine="fused",
+                                             device=device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve_fn(x0s, us0)
+                torch.cuda.synchronize()
+                solve_s = time.perf_counter() - t0
+        finally:
+            batched.closed_loop_rollout_bl = original
+        passes = int(res.iterations.max())
+        return res, dict(solve_s=solve_s, passes=passes,
+                         ladder_s_per_pass=spent["ladder"] / passes,
+                         rollouts_per_pass=rollouts[0] / passes,
+                         rungs_per_pass=R * rollouts[0] / passes)
+
+    seq_again, seq_row = run(cfg)
+    for f in ("us", "status", "iterations", "alpha"):
+        assert torch.equal(getattr(seq_again, f), getattr(seq, f)), f
+    rows, launches = {"sequential": seq_row}, 0
+    for R in PARALLEL_ALPHA_BLOCKS:
+        cuda_riccati.reset_launch_counts()
+        res, row = run(cfg.replace(parallel_alpha_block=R))
+        counts = dict(cuda_riccati.launch_counts)
+        assert counts[name] == row["passes"] >= 1, (counts, row)
+        launches += counts[name]
+        for f in ("status", "iterations", "alpha"):
+            assert torch.equal(getattr(res, f), getattr(seq, f)), (R, f)
+        us_rel = float((res.us - seq.us).abs().max() / seq.us.abs().max())
+        assert us_rel <= PARALLEL_ALPHA_REL_BOUND, (R, us_rel)
+        row.update(us_equal=bool(torch.equal(res.us, seq.us)),
+                   us_rel_diff=us_rel, launches=counts[name])
+        rows[f"R={R}"] = row
+    emit(phase="parallel_alpha", B=B, T=T, dtype="float32",
+         blocks=list(PARALLEL_ALPHA_BLOCKS), us_rel_bound=PARALLEL_ALPHA_REL_BOUND,
+         rows=rows)
+    return {name: launches}
+
+
+def al_problem(problem):
+    """The 2-link squashed into the control box |u| < AL["u_max"], and the
+    joint-velocity cap |dq| <= AL["v_max"] as constraint rows."""
+
+    from ilqr_tpu_torch.constraints import box_constrained
+
+    squashed, to_u, to_v = box_constrained(problem, -AL["u_max"], AL["u_max"])
+
+    def cap(x, v):
+        vmax = torch.as_tensor(AL["v_max"], dtype=x.dtype, device=x.device)
+        return torch.cat([x[2:] - vmax, -x[2:] - vmax])
+
+    return squashed, to_u, cap
+
+
+def al_inputs(B, T, dtype, seed, device):
+    """The swing-up's starts (the scenario distribution of phase ``solve``)
+    and zero pre-controls."""
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x0s = (torch.tensor(NOMINAL, dtype=torch.float64)
+           + 0.1 * torch.randn((B, N), generator=gen, dtype=torch.float64))
+    return (x0s.to(dtype).to(device),
+            torch.zeros((B, T, M), dtype=dtype, device=device))
+
+
+def phase_al(problem, device):
+    """``al_solve`` of the 2-link with a control box and a velocity cap,
+    B=1024, T=100, float32, ``backward_backend="pallas"``: the index
+    coordinate makes the state n=5, so every inner backward pass launches
+    the batch-first entry of ``riccati.cu`` at ``(5, 2)``.  The largest
+    violation must end at or below the ALConfig target; then float64 at B=4,
+    card against CPU; then the ``(5, 2)`` kernel at the phase's shapes
+    against its plain version."""
+
+    import functools
+
+    from ilqr_tpu_torch import al
+    from ilqr_tpu_torch.config import ILQRConfig, Status
+    from ilqr_tpu_torch.derivatives import (problem_linearize,
+                                            problem_quadratize_final,
+                                            problem_quadratize_running)
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.problem import problem_dynamics, rollout
+
+    squashed, to_u, cap = al_problem(problem)
+    cfg = ILQRConfig(max_iter=AL["max_iter"], tol=1e-5, tol_grad=1e-10,
+                     tol_grad_rel=1e-6, reg=1e-2, adaptive_reg=True,
+                     max_backtracks=AL["max_backtracks"],
+                     backward_backend="pallas")
+    alc = al.ALConfig(max_outer=AL["max_outer"])
+    B, T = AL["B"], AL["T"]
+    x0s, us0 = al_inputs(B, T, torch.float32, 11, device)
+
+    def run(x0, u0, dev, cfg_run):
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = al.al_solve(squashed, x0, u0, cap, config=cfg_run, al_config=alc,
+                        device=dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    n_aug = N + 1
+    name = cuda_riccati.kernel_name(n_aug, M, torch.float32)
+    cuda_riccati.reset_launch_counts()
+    res, solve_s = run(x0s, us0, device, cfg)
+    launches = count_batch_first(name)
+    assert launches >= int(res.outer_iterations.max()) >= 1, launches
+    viol = float(res.max_violation.max())
+    assert viol <= alc.constraint_tol, (viol, alc.constraint_tol)
+    assert res.us.dtype == torch.float32
+    assert bool(torch.isfinite(res.us).all())
+    # Inside the box: strictly in exact arithmetic, up to the bound itself
+    # where float32 tanh rounds to 1.
+    u = to_u(res.us)
+    assert float(u.abs().max()) <= AL["u_max"]
+    by_status = {Status(int(c)).name: int((res.status == c).sum())
+                 for c in res.status.unique()}
+
+    # Float64 at a small size: card (kernel at (5, 2)) against CPU.
+    Bf, Tf = AL_F64["B"], AL_F64["T"]
+    x64, u64 = al_inputs(Bf, Tf, torch.float64, 12, "cpu")
+    cpu, cpu_s = run(x64, u64, "cpu", cfg)
+    name64 = cuda_riccati.kernel_name(n_aug, M, torch.float64)
+    cuda_riccati.reset_launch_counts()
+    gpu, _ = run(x64, u64, device, cfg)
+    launches64 = count_batch_first(name64)
+    for f in ("outer_iterations", "inner_iterations", "status"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    f64 = {}
+    for f in ("us", "lam", "mu", "cost"):
+        torch.testing.assert_close(getattr(gpu, f).cpu(), getattr(cpu, f),
+                                   rtol=AL_F64["rtol"], atol=1e-10, msg=f)
+        f64[f] = rel_err(getattr(gpu, f).cpu(), getattr(cpu, f))
+
+    # The (5, 2) kernel at this phase's shapes, on what its first launch was
+    # handed: the local models of the first augmented problem (multipliers
+    # 0, penalty mu0) at the rollout of zero pre-controls.  (Later iterates
+    # of the squashed problem may hand it an indefinite Ruu, whose lanes the
+    # line search rejects.)
+    lanes = torch.arange(B, device=device)
+    prob_al = al._augment_problem(
+        squashed, cap, None,
+        torch.zeros((B * T, 4), dtype=torch.float32, device=device),
+        torch.zeros((B, 1), dtype=torch.float32, device=device),
+        torch.full((B,), alc.mu0, dtype=torch.float32, device=device),
+        torch.zeros(4, dtype=torch.bool, device=device),
+        torch.zeros(1, dtype=torch.bool, device=device), T)
+    x0_aug = torch.cat([x0s, (lanes * T).to(torch.float32)[:, None]], dim=-1)
+    xs_aug = rollout(functools.partial(problem_dynamics, prob_al), x0_aug,
+                     us0)
+    As, Bs = problem_linearize(prob_al, xs_aug[:, :-1], us0)
+    _q, qx, ru, Qxx, Pux, Ruu = problem_quadratize_running(
+        prob_al, xs_aug[:, :-1], us0)
+    _qN, qxN, QN = problem_quadratize_final(prob_al, xs_aug[:, -1])
+    m32 = tuple(x.contiguous() for x in (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN,
+                                         QN))
+    rows = batch_first_rows(m32, n_aug, M, B, T, F32_REL_BOUND)
+    for row in rows.values():
+        assert row["copy_path"] == "per_element", row["copy_path"]
+    lam_max = float(res.lam.max())
+    assert lam_max > 0.0, "the velocity cap was never active"
+    emit(phase="al", B=B, T=T, dtype="float32", n_augmented=n_aug,
+         u_box=AL["u_max"], v_cap=AL["v_max"],
+         max_violation=viol, constraint_tol=alc.constraint_tol,
+         lam_max=lam_max, u_abs_max=float(u.abs().max()),
+         outer_iterations_max=int(res.outer_iterations.max()),
+         inner_iterations_mean=float(res.inner_iterations.float().mean()),
+         lanes_by_status=by_status, solve_s=solve_s,
+         batch_first_launches={name: launches, name64: launches64},
+         f64=dict(B=Bf, T=Tf, rtol=AL_F64["rtol"], rel_diff=f64,
+                  cpu_solve_s=cpu_s),
+         kernel_rows=rows)
+    return {name: launches, name64: launches64}, rows
+
+
+def batch_first_rows(m32, n, m, B, T, f32_bound):
+    """The batch-first entry at ``(n, m)`` on the batch-first local models
+    ``m32`` (float32), in both types: equal (``torch.equal``) to the
+    batch-last entry on the transposed inputs (the same arithmetic a lane in
+    both layouts), within ``f32_bound`` (float32) or 1e-10 (float64) of the
+    plain version relative to each output's largest magnitude, contiguous
+    outputs, and no device memory asked for beyond them; then the entry's
+    device time beside the batch-last kernel's, the plain version's time
+    and the bound.  The entry copies no layout (the kernels read ``[B, T,
+    ...]`` in place), so there is no copy to time.  Rows for the
+    ``kernels`` line."""
+
+    from ilqr_tpu_torch.ops.cuda_riccati import (from_batch_last,
+                                                 kernel_name,
+                                                 riccati_scan_cuda_batched,
+                                                 riccati_scan_cuda_bl,
+                                                 riccati_scan_plain_batched,
+                                                 to_batch_last)
+
+    rows = {}
+    device = m32[0].device
+    for dtype in (torch.float32, torch.float64):
+        bf = tuple(x.to(dtype) for x in m32)
+        reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
+        got = riccati_scan_cuda_batched(*bf, reg)
+        path = last_copy_path()
+        bl = to_batch_last(bf)
+        same = from_batch_last(riccati_scan_cuda_bl(*bl, reg))
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        plain = riccati_scan_plain_batched(*bf, reg)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        bound = 1e-10 if dtype == torch.float64 else f32_bound
+        # One more call: the device memory it asks for beyond what was
+        # allocated before, against its outputs.  Bytes as requested: the
+        # allocator may hand out a cached block somewhat larger.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        key = "requested_bytes.all"
+        before = torch.cuda.memory_stats()[f"{key}.current"]
+        outs = riccati_scan_cuda_batched(*bf, reg)
+        torch.cuda.synchronize()
+        extra = torch.cuda.memory_stats()[f"{key}.peak"] - before
+        out_bytes = sum(x.numel() * x.element_size() for x in outs)
+        assert extra <= out_bytes, ((n, m), str(dtype), extra, out_bytes)
+        del outs
+        max_abs, max_rel = 0.0, 0.0
+        for name, g, e, p in zip(("duffs", "Ks", "dv1", "dv2"), got, same,
+                                 plain):
+            assert g.shape == p.shape and g.dtype == p.dtype, name
+            assert g.shape[0] == B, (name, g.shape)
+            assert g.is_contiguous(), name
+            assert torch.equal(g, e), f"{name}: batch-first != batch-last"
+            assert bool(torch.isfinite(g).all()), f"{name}: not finite"
+            r = rel_err(g, p)
+            assert r <= bound, ((n, m), str(dtype), name, r, bound)
+            max_abs = max(max_abs, float((g - p).abs().max()))
+            max_rel = max(max_rel, r)
+        bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
+        rows[kernel_name(n, m, dtype)] = dict(
+            n=n, m=m, B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel,
+            rel_bound=bound, equal_to_batch_last=True, copy_path=path,
+            allocated_bytes=extra, output_bytes=out_bytes,
+            ms=device_time(lambda: riccati_scan_cuda_batched(*bf, reg), 30),
+            call_ms=sync_time(lambda: riccati_scan_cuda_batched(*bf, reg),
+                              30),
+            batch_last_ms=device_time(
+                lambda: riccati_scan_cuda_bl(*bl, reg), 30),
+            layout_copies="none",
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        del got, same, plain, bl, bf
+    return rows
+
+
+def phase_trace_profile(problem, device):
+    """``solve_with_trace`` of one float64 scenario (its last valid row is
+    the result's iteration); one fused pass of phase ``solve``'s batch under
+    ``device_trace`` (the trace file exists and names the Riccati kernel);
+    ``PhaseTimer`` around the phases of one pass."""
+
+    import json as _json
+
+    from ilqr_tpu_torch import batched
+    from ilqr_tpu_torch.config import ILQRConfig
+    from ilqr_tpu_torch.problem import problem_dynamics, rollout
+    from ilqr_tpu_torch.solver import solve
+    from ilqr_tpu_torch.step import initial_state
+    from ilqr_tpu_torch.utils.metrics import solve_with_trace
+    from ilqr_tpu_torch.utils.profiling import (PhaseTimer, annotate,
+                                                device_trace)
+
+    T = TRACE["T"]
+    cfg = ILQRConfig(max_iter=TRACE["max_iter"], tol=1e-6, tol_grad=1e-10,
+                     tol_grad_rel=1e-6)
+    x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], dtype=torch.float64,
+                      device=device)
+    us0 = torch.zeros((T, M), dtype=torch.float64, device=device)
+    xs0 = rollout(lambda x, u: problem_dynamics(problem, x, u), x0, us0)
+    t0 = time.perf_counter()
+    res, trace = solve_with_trace(problem, xs0, us0, config=cfg,
+                                  device=device)
+    trace_s = time.perf_counter() - t0
+    plain = solve(problem, xs0, us0, config=cfg, device=device)
+    for f in plain._fields:
+        assert torch.equal(getattr(res, f), getattr(plain, f)), f
+    valid = trace.valid.cpu()
+    last = int(valid.sum()) - 1
+    assert last + 1 == int(res.iterations) >= 1
+    assert int(trace.status[last]) == int(res.status)
+    assert float(trace.du_sq[last]) == float(res.du_sq)
+    assert float(trace.alpha[last]) == float(res.alpha)
+
+    B, T2 = HEADLINE["B"], HEADLINE["T"]
+    x0s, us_b = scenario_inputs(B, T2, torch.float32, 0, device)
+    us = us_b.movedim(0, -1).contiguous()
+    xs = batched.rollout_bl(problem, x0s.T.contiguous(), us)
+    pcfg = ILQRConfig(backward_backend="pallas", reg=1e-2)
+    state = initial_state(xs, us, pcfg, lane_shape=(B,))
+    timer = PhaseTimer()
+
+    def one_pass():
+        with annotate("derivatives"), timer.phase("derivatives"):
+            models = batched.derivatives_bl(problem, xs, us)
+        with annotate("riccati"), timer.phase("riccati"):
+            gains = batched.riccati_bl(*models, reg=state.reg, config=pcfg)
+        with annotate("forward_pass"), timer.phase("forward_pass"):
+            batched.forward_pass_bl(problem, xs, us, *gains[:2],
+                                    state.prev_cost, None, pcfg,
+                                    dV1=gains[2], dV2=gains[3])
+
+    one_pass()   # warm
+    log_dir = scratch_path("trace")
+    t0 = time.perf_counter()
+    with device_trace(str(log_dir)):
+        one_pass()
+    traced_s = time.perf_counter() - t0
+    trace_file = log_dir / "trace.json"
+    assert trace_file.exists()
+    events = _json.loads(trace_file.read_text())["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if "riccati_kernel" in e.get("name", "")})
+    assert kernels, "the Riccati kernel is not in the trace"
+    names = {e.get("name") for e in events}
+    assert {"derivatives", "riccati", "forward_pass"} <= names
+    emit(phase="trace_profile", trace_T=T, trace_dtype="float64",
+         trace_rows_valid=last + 1, trace_status=trace.status.tolist(),
+         solve_with_trace_s=trace_s, traced_pass_s=traced_s,
+         trace_file_bytes=trace_file.stat().st_size,
+         trace_events=len(events), riccati_kernels_in_trace=kernels,
+         phase_timer=timer.summary().splitlines())
+
+
 def ptxas_summary(_build):
     """``{kernel: "registers, spill bytes, shared memory"}`` from the logs
     of the build (``nvcc -Xptxas -v``), template arguments as the name."""
@@ -1567,9 +2224,24 @@ def main():
     bf_rows = phase_batched_entry(problem, cases, device)
     bf_launches = phase_vmap_solve(problem, solve_cfg, fused, device)
     phase_single(problem, device)
-    for name, count in phase_mpc(problem, device).items():
-        bf_launches[name] += count
-    emit(phase="total", seconds=time.perf_counter() - t_start)
+
+    def add(into, counts):
+        for name, count in counts.items():
+            into[name] = into.get(name, 0) + count
+
+    add(bf_launches, phase_mpc(problem, device))
+    add(launches, phase_resilience(problem, solve_cfg, device))
+    add(bf_launches, phase_mpc_chunked(problem, device))
+    add(bf_launches, phase_long_horizon(problem, device))
+    add(launches, phase_parallel_alpha(problem, solve_cfg, fused, device))
+    al_launches, al_rows = phase_al(problem, device)
+    add(bf_launches, al_launches)
+    bf_rows.update(al_rows)
+    phase_trace_profile(problem, device)
+    marks = [("start", t_start)] + EMITTED
+    emit(phase="total", seconds=time.perf_counter() - t_start,
+         seconds_by_phase={p: t - t_prev for (_, t_prev), (p, t)
+                           in zip(marks, marks[1:])})
 
     kernels = []
     for name, row in sorted(rows.items()):
@@ -1585,7 +2257,8 @@ def main():
         row = bf_rows[name]
         assert count >= 1, (name, bf_launches)
         kernels.append(dict(
-            name=f"{name}_batch_first", route="cuda", source=sources[name],
+            name=f"{name}_batch_first", route="cuda",
+            source=sources.get(name, KERNEL_SOURCE),
             entry=BATCH_FIRST_ENTRY, replaces=BATCH_FIRST_REPLACES,
             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
             batch_last_ms=row["batch_last_ms"], layout_copies="none",

@@ -5,18 +5,22 @@ names, so a reader finds the counterpart of every function; plain functions
 on ``torch`` tensors inside.  It imports ``torch`` and numpy, never ``jax``
 and nothing of ``ilqr_tpu``.
 
-Ported so far: the fused batch-last solve of a scenario batch
+Ported: the fused batch-last solve of a scenario batch
 (``parallel.batching.make_batch_solver`` → ``batched.batched_solve_fused`` →
-``step.ilqr_step``) on the analytic 2-link arm; the chunked solve with
-straggler compaction (``batched.make_chunked_batch_solver``) on the
-floating-base arms of the rigid-body layer (``models.rbd``); the
+``step.ilqr_step``) on the analytic 2-link arm, with the parallel-alpha
+ladder; the chunked solve with straggler compaction, host snapshots, resume
+and retry (``batched.make_chunked_batch_solver``, ``utils.checkpoint``) on
+the floating-base arms of the rigid-body layer (``models.rbd``); the
 per-scenario solver (``solver.solve``/``fit`` over ``derivatives``,
-``backward`` and ``forward``), which takes leading batch axes and so also
-serves ``batch_solve(engine="vmap")`` and MPC (``parallel.mpc``).  The
-backward Riccati recursion runs in hand-written CUDA kernels
-(``ops/cuda_riccati.py``, ``ops/csrc/``) behind a batch-last and a
-batch-first entry.  Entry points take an explicit
-``device=`` and run on the card unless the caller asks for the CPU.
+``backward`` — with the parallel-in-time ``pit`` — and ``forward``), which
+takes leading batch axes and so also serves ``batch_solve(engine="vmap")``,
+MPC (``parallel.mpc``, also checkpointed in chunks) and the
+augmented-Lagrangian constraints (``al``, ``constraints``, ``costs``); the
+iteration trace and profiling hooks (``utils``).  The backward Riccati
+recursion runs in hand-written CUDA kernels (``ops/cuda_riccati.py``,
+``ops/csrc/``) behind a batch-last and a batch-first entry.  Entry points
+take an explicit ``device=`` and run on the card unless the caller asks
+for the CPU.
 """
 
 from ilqr_tpu_torch.backward import backward_pass

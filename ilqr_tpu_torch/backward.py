@@ -9,7 +9,8 @@ autodiff and then does the gain/value algebra.  Here the two are split:
 2. the sequential value recursion is a Python loop over ``t = T-1 … 0``
    (:func:`riccati_scan`), or the hand-written CUDA kernel
    (``backward_backend="pallas"``, through
-   :mod:`ilqr_tpu_torch.ops.riccati_dispatch`).
+   :mod:`ilqr_tpu_torch.ops.riccati_dispatch`), or the parallel-in-time
+   recursion (``"associative"``, :mod:`ilqr_tpu_torch.pit`).
 
 The per-step algebra replicates the reference exactly:
 
@@ -148,29 +149,32 @@ def backward_pass(problem: Problem, xs: torch.Tensor, us: torch.Tensor,
 
     ``reg`` (scalar or ``[*L]``) defaults to the static ``config.reg``.
     ``backward_backend``: ``"scan"`` (:func:`riccati_scan`, with ``ddp``
-    and ``reg_in_value``) or ``"pallas"`` (the batching-aware op of
-    :mod:`ilqr_tpu_torch.ops.riccati_dispatch`).  ``"associative"``, the
-    parallel-in-time recursion of ``ilqr_tpu/pit.py``, is not ported
-    (``ROADMAP.md`` A9) and raises.
+    and ``reg_in_value``), ``"pallas"`` (the batching-aware op of
+    :mod:`ilqr_tpu_torch.ops.riccati_dispatch`) or ``"associative"`` (the
+    parallel-in-time recursion, :mod:`ilqr_tpu_torch.pit`, with
+    ``reg_in_value``).
     """
 
     if reg is None:
         reg = config.reg
-    if config.backward_backend == "associative":
-        raise NotImplementedError(
-            "backward_backend='associative' (the parallel-in-time recursion "
-            "of ilqr_tpu/pit.py) is not ported to ilqr_tpu_torch yet "
-            "(ROADMAP.md A9); use 'scan' or 'pallas'")
-    if config.backward_backend not in ("scan", "pallas"):
+    if config.backward_backend not in ("scan", "pallas", "associative"):
         raise NotImplementedError(
             f"backward_backend={config.backward_backend!r} is not ported; "
-            "ilqr_tpu_torch has 'scan' and 'pallas' (the CUDA kernel)")
+            "ilqr_tpu_torch has 'scan', 'pallas' (the CUDA kernel) and "
+            "'associative'")
 
     xs_run, x_final = xs[..., :-1, :], xs[..., -1, :]
     As, Bs = problem_linearize(problem, xs_run, us)
     q, qx, ru, Qxx, Pux, Ruu = problem_quadratize_running(problem, xs_run, us)
     qN, qxN, QN = problem_quadratize_final(problem, x_final)
 
+    if config.backward_backend == "associative":
+        from ilqr_tpu_torch.pit import riccati_associative_scan
+
+        return riccati_associative_scan(
+            As, Bs, q, qx, ru, Qxx, Pux, Ruu, qN, qxN, QN,
+            reg=reg, symmetrize=config.symmetrize,
+            reg_in_value=config.reg_in_value)
     if config.backward_backend == "pallas":
         op = make_riccati_op(config.symmetrize)
         return BackwardResult(*op(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN,

@@ -18,16 +18,18 @@ The backward recursion runs in the fused CUDA kernel
 (``backward_backend="pallas"``, the name kept from the JAX package) or as a
 batch-last Python loop (``"scan"``).
 
-Not ported yet, and refused rather than ignored: ``backward_backend=
-"associative"``, ``reg_in_value``, ``ddp``, ``parallel_alpha_block > 0``
-(the parallel-alpha ladder), and the chunked solver's host snapshots and
-in-process retry (``snapshot_every``, ``snapshot_path``, ``max_retries``).
+Refused rather than ignored: ``backward_backend="associative"``,
+``reg_in_value`` and ``ddp``.  The JAX fused engine ignores these three
+silently and runs its default recursion (``ROADMAP.md`` C1); they exist in
+the per-scenario engine (:mod:`ilqr_tpu_torch.solver`) of both packages.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.func import grad, jacfwd, vmap
 
@@ -249,6 +251,34 @@ def closed_loop_rollout_bl(problem: Problem, xs, us, duffs, Ks, alpha):
     return torch.stack(xs_new, dim=0), torch.stack(us_new, dim=0)
 
 
+def _ls_threshold(config: ILQRConfig, alpha, dV1, dV2, dtype):
+    """The decrease a rung at ``alpha`` must beat under
+    ``config.ls_expected_decrease``: ``ls_c`` times the model's expected
+    decrease, clamped at 0 (``alpha`` broadcasts against ``dV1``/``dV2``)."""
+
+    exp_impr = -(alpha * dV1 + alpha * alpha * dV2)
+    return (config.ls_c * torch.clamp(exp_impr, min=0.0)).to(dtype)
+
+
+def _ls_accept(config: ILQRConfig, cost, prev_cost, thresh, delta=None,
+               du_step_sq=None):
+    """Whether a candidate of cost ``cost`` is accepted — the one rule of
+    both ladders.  Under ``config.exact_ls_delta`` the decrease is the
+    per-step ``delta``; a candidate identical to the iterate
+    (``du_step_sq == 0``: the gain step underflowed the update) is the step
+    the convergence test fires on, and is accepted whatever ``delta``'s
+    re-evaluation noise says; an infinite ``prev_cost`` accepts any finite
+    cost; ``isfinite``, not just ``~isnan``: an infinite first-iteration
+    cost must backtrack."""
+
+    if not config.exact_ls_delta:
+        return (prev_cost - cost) > thresh
+    ok = torch.logical_or(
+        torch.logical_or(torch.isinf(prev_cost), -delta > thresh),
+        du_step_sq == 0)
+    return torch.logical_and(ok, torch.isfinite(cost))
+
+
 @highest_precision
 def forward_pass_bl(problem: Problem, xs, us, duffs, Ks, prev_cost,
                     x_ref=None, config: ILQRConfig = DEFAULT_CONFIG,
@@ -289,33 +319,21 @@ def forward_pass_bl(problem: Problem, xs, us, duffs, Ks, prev_cost,
     while k < config.max_backtracks and not bool(torch.all(accepted)):
         xs_new, us_new = closed_loop_rollout_bl(problem, xs, us, duffs, Ks,
                                                 alpha)
-        if use_expected:
-            exp_impr = -(alpha * dV1 + alpha * alpha * dV2)
-            thresh = (config.ls_c * torch.clamp(exp_impr, min=0.0)).to(dtype)
-        else:
-            thresh = 0.0
+        thresh = (_ls_threshold(config, alpha, dV1, dV2, dtype)
+                  if use_expected else 0.0)
         if config.exact_ls_delta:
             steps_new, final_new = step_costs_bl(problem, xs_new, us_new,
                                                  x_ref)
             cost = (torch.sum(steps_new, dim=0) + final_new).to(dtype)
             delta = (torch.sum(steps_new - steps_old, dim=0)
                      + (final_new - final_old)).to(dtype)
-            # Converging-step acceptance: a candidate bitwise identical to
-            # the iterate (the gain step underflowed the f32 update) is the
-            # step the convergence test fires on; delta for it is pure
-            # re-evaluation noise.
             du_step_sq = torch.sum((us_new - us) ** 2, dim=(0, 1))
-            ok = torch.logical_or(
-                torch.logical_or(torch.isinf(prev_cost), -delta > thresh),
-                du_step_sq == 0)
-            # isfinite, not just ~isnan: an inf first-iteration cost must
-            # backtrack.
-            improve = torch.logical_and(ok, torch.isfinite(cost))
-            accept_now = torch.logical_and(~accepted, improve)
+            ok = _ls_accept(config, cost, prev_cost, thresh, delta,
+                            du_step_sq)
         else:
             cost = total_cost_bl(problem, xs_new, us_new, x_ref).to(dtype)
-            accept_now = torch.logical_and(~accepted,
-                                           (prev_cost - cost) > thresh)
+            ok = _ls_accept(config, cost, prev_cost, thresh)
+        accept_now = torch.logical_and(~accepted, ok)
         take = accept_now[None, None, :]
         xs_b = torch.where(take, xs_new, xs_b)
         us_b = torch.where(take, us_new, us_b)
@@ -332,28 +350,153 @@ def forward_pass_bl(problem: Problem, xs, us, duffs, Ks, prev_cost,
             bts)
 
 
+@highest_precision
+def forward_pass_bl_parallel(problem: Problem, xs, us, duffs, Ks, prev_cost,
+                             x_ref=None,
+                             config: ILQRConfig = DEFAULT_CONFIG,
+                             active=None, dV1=None, dV2=None):
+    """Parallel-alpha line search: evaluate ``R = config.
+    parallel_alpha_block`` ladder rungs per block as extra lanes of ONE
+    closed-loop rollout (lane ``r * B + b`` tries rung ``kb * R + r`` of
+    lane ``b``).
+
+    Decisions are those of :func:`forward_pass_bl` — the first accepting
+    alpha in ladder order, the same ``exact_ls_delta`` and
+    ``ls_expected_decrease`` rules — but the T-step rollout runs once per
+    block instead of once per rung.  Blocks repeat until every lane
+    accepted or ``max_backtracks`` rungs have been tried (one host
+    synchronization a block).  Same returns as :func:`forward_pass_bl`.
+    """
+
+    R = config.parallel_alpha_block
+    B = xs.shape[-1]
+    dtype, device = xs.dtype, xs.device
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=device)
+    use_expected = config.ls_expected_decrease and dV1 is not None
+
+    if config.exact_ls_delta:
+        steps_old, final_old = step_costs_bl(problem, xs, us, x_ref)
+    # x_ref goes with its lanes into the expanded batch (the JAX function
+    # passes it untiled, which broadcasts only for B = 1).
+    x_ref_r = None if x_ref is None else x_ref.repeat(1, 1, R)
+
+    # The expanded batch, lane index r * B + b.
+    xs_r = xs.repeat(1, 1, R)
+    us_r = us.repeat(1, 1, R)
+    duffs_r = duffs.repeat(1, 1, R)
+    Ks_r = Ks.repeat(1, 1, 1, R)
+    n_blocks = -(-config.max_backtracks // R)
+
+    def per_rung(reduce, x):
+        """``reduce`` of each rung's lanes ``x[..., r*B:(r+1)*B]``, stacked
+        ``[R, ...]``: every sum over time runs on a batch of B lanes, the
+        shape the sequential ladder sums, because a reduction's order of
+        operations may depend on the width of the batch."""
+
+        return torch.stack([reduce(x[..., r * B:(r + 1) * B].contiguous())
+                            for r in range(R)])
+
+    def try_block(kb, alphas):
+        """Every candidate of block ``kb``: rungs kb*R ... kb*R+R-1, at
+        ``alphas [R]``."""
+
+        rungs = kb * R + torch.arange(R, device=device)
+        alpha_vec = alphas.repeat_interleave(B)                   # [R*B]
+        xs_new, us_new = closed_loop_rollout_bl(problem, xs_r, us_r,
+                                                duffs_r, Ks_r, alpha_vec)
+        thresh = (_ls_threshold(config, alphas[:, None], dV1[None, :],
+                                dV2[None, :], dtype)
+                  if use_expected else 0.0)
+        steps_new, final_new = step_costs_bl(problem, xs_new, us_new,
+                                             x_ref_r)
+        cost = (per_rung(lambda s: torch.sum(s, dim=0), steps_new)
+                + final_new.reshape(R, B)).to(dtype)
+        if config.exact_ls_delta:
+            delta = (per_rung(lambda s: torch.sum(s - steps_old, dim=0),
+                              steps_new)
+                     + (final_new.reshape(R, B) - final_old[None, :])
+                     ).to(dtype)
+            du_step_sq = per_rung(
+                lambda u: torch.sum((u - us) ** 2, dim=(0, 1)), us_new)
+            ok = _ls_accept(config, cost, prev_cost[None, :], thresh, delta,
+                            du_step_sq)
+        else:
+            ok = _ls_accept(config, cost, prev_cost[None, :], thresh)
+        # Rungs past the sequential ladder's budget must not accept.
+        ok = torch.logical_and(ok, (rungs < config.max_backtracks)[:, None])
+        return xs_new, us_new, cost, ok
+
+    kb = 0
+    accepted = ~active
+    bts = torch.zeros((B,), dtype=torch.int32, device=device)
+    alpha_b = torch.full((B,), config.alpha0, dtype=dtype, device=device)
+    xs_b, us_b = xs, us
+    cost_b = torch.full((B,), float("inf"), dtype=dtype, device=device)
+    # The ladder's alphas as the sequential ladder makes them: each rung's
+    # is the one before times alpha_factor, in the working dtype.
+    ladder = [torch.tensor(config.alpha0, dtype=dtype, device=device)]
+    # One host synchronization per test of the condition.
+    while kb < n_blocks and not bool(torch.all(accepted)):
+        while len(ladder) <= (kb + 1) * R:
+            ladder.append(ladder[-1] * config.alpha_factor)
+        alphas = torch.stack(ladder[kb * R:(kb + 1) * R])
+        xs_new, us_new, cost, ok = try_block(kb, alphas)
+        first = torch.argmax(ok.to(torch.int32), dim=0)           # [B]
+        any_ok = torch.any(ok, dim=0)
+        accept_now = torch.logical_and(~accepted, any_ok)
+
+        def pick(x):
+            xr = x.reshape(x.shape[:-1] + (R, B))
+            idx = first.reshape((1,) * (xr.ndim - 2) + (1, B)).expand(
+                xr.shape[:-2] + (1, B))
+            return torch.gather(xr, -2, idx)[..., 0, :]
+
+        take = accept_now[None, None, :]
+        xs_b = torch.where(take, pick(xs_new), xs_b)
+        us_b = torch.where(take, pick(us_new), us_b)
+        cost_b = torch.where(accept_now,
+                             torch.gather(cost, 0, first[None, :])[0], cost_b)
+        alpha_b = torch.where(accept_now, alphas[first], alpha_b)
+        bts = torch.where(accept_now, (kb * R + first).to(torch.int32), bts)
+        # Lanes still unaccepted have rejected every rung tried so far; they
+        # report the alpha after the last rejected rung, as the sequential
+        # ladder's carry does on exhaustion.
+        tried = min((kb + 1) * R, config.max_backtracks)
+        settled = torch.logical_or(accepted, accept_now)
+        bts = torch.where(settled, bts, tried)
+        alpha_b = torch.where(settled, alpha_b, ladder[tried])
+        accepted = settled
+        kb += 1
+    return (xs_b, us_b, cost_b, torch.logical_and(accepted, active),
+            alpha_b, bts)
+
+
 def make_batch_last_engine(problem: Problem, x_ref_bl,
                            config: ILQRConfig) -> StepEngine:
     """The batch-last StepEngine: every lane-shaped value is ``[B]`` and
-    trajectories carry a trailing lane axis.
+    trajectories carry a trailing lane axis.  ``parallel_alpha_block > 0``
+    runs the ladder as :func:`forward_pass_bl_parallel`.
 
-    Raises ``NotImplementedError`` on the flags this engine does not
-    implement.  (The JAX fused engine ignores the first three silently and
-    runs its default recursion; the port does not copy that.)
+    Raises ``NotImplementedError`` on ``backward_backend="associative"``,
+    ``reg_in_value`` and ``ddp``: the JAX fused engine ignores them silently
+    and runs its default recursion (``ROADMAP.md`` C1); the port does not
+    copy that, and does not add them either — they belong to the
+    per-scenario engine in both packages.
     """
 
-    unported = {
+    refused = {
         "backward_backend='associative'":
             config.backward_backend == "associative",
         "reg_in_value=True": config.reg_in_value,
         "ddp=True": config.ddp,
-        "parallel_alpha_block > 0": config.parallel_alpha_block > 0,
     }
-    for flag, is_set in unported.items():
+    for flag, is_set in refused.items():
         if is_set:
             raise NotImplementedError(
                 f"{flag} is not implemented by the batch-last engine of "
-                "ilqr_tpu_torch")
+                "ilqr_tpu_torch; the per-scenario engine "
+                "(make_batch_solver(engine='vmap'), solver.solve) has it")
 
     def backward(xs, us, reg):
         models = derivatives_bl(problem, xs, us,
@@ -362,6 +505,11 @@ def make_batch_last_engine(problem: Problem, x_ref_bl,
 
     def forward(xs, us, duffs, Ks, prev_cost, active, dV1, dV2,
                 alpha_init=None):
+        if config.parallel_alpha_block > 0:
+            # alpha_init is rejected at config construction for this path.
+            return forward_pass_bl_parallel(
+                problem, xs, us, duffs, Ks, prev_cost, x_ref_bl, config,
+                active=active, dV1=dV1, dV2=dV2)
         return forward_pass_bl(problem, xs, us, duffs, Ks, prev_cost,
                                x_ref_bl, config, active=active, dV1=dV1,
                                dV2=dV2, alpha_init=alpha_init)
@@ -433,33 +581,40 @@ def make_chunked_batch_solver(problem: Problem,
     device.  The step body is per-lane, so compaction changes no lane's
     arithmetic.
 
-    Not ported, and refused rather than ignored: ``snapshot_every > 0``,
-    ``snapshot_path`` and a ``max_retries`` or ``_fault_hook`` other than
-    the defaults — the host snapshots, the cross-process resume and the
-    in-process retry of the JAX package answer device faults of a remotely
-    attached accelerator.
+    ``snapshot_every > 0`` keeps a HOST SNAPSHOT — the solver state of the
+    full batch (compacted lanes merged back) as numpy arrays, and the pass
+    count — every that-many chunks, and retries a chunk that fails with
+    ``torch.AcceleratorError`` (the error a CUDA fault raises where the
+    host synchronizes) from the last snapshot, up to ``max_retries``
+    consecutive times (the count resets after a chunk that succeeds).
+    Before a retry the device is probed with a small allocation and a
+    synchronize: a sticky CUDA error, which no retry in this process can
+    clear, raises there at once.  A retry reruns the same code, kernels
+    included.  Nothing else is retried: a ``RuntimeError`` of a kernel
+    launch that failed, a build error or a Python error propagates.
 
-    Runs on ``device`` (default: the card).
+    ``snapshot_path`` extends this across processes: every host snapshot
+    (every chunk if ``snapshot_every`` is 0) is also saved to that file with
+    :func:`ilqr_tpu_torch.utils.checkpoint.save_solver_state`, in the JAX
+    package's format — ``{"state": StepState, "n_passes": int64}``,
+    batch-last — and a ``solve_fn`` that finds the file at entry resumes
+    from it.  A snapshot of either package resumes in the other.  The file
+    is removed when the solve returns, also after ``on_chunk`` stopped it.
+
+    ``_fault_hook(chunk_idx)`` is called before each chunk (a test seam for
+    injected faults).  Runs on ``device`` (default: the card).
     """
 
-    unported = {
-        "snapshot_every > 0": snapshot_every > 0,
-        "snapshot_path": snapshot_path is not None,
-        "max_retries": max_retries != 2,
-        "_fault_hook": _fault_hook is not None,
-    }
-    for arg, is_set in unported.items():
-        if is_set:
-            raise NotImplementedError(
-                f"{arg} is not implemented by make_chunked_batch_solver of "
-                "ilqr_tpu_torch (host snapshots, resume and retry are not "
-                "ported)")
+    from ilqr_tpu_torch.utils.checkpoint import (load_solver_state,
+                                                 save_solver_state)
 
     device = resolve_device(device)
     x_ref_bl = (None if x_ref is None
                 else x_ref.to(device).movedim(0, -1).contiguous())
     running_code = int(Status.RUNNING)
     sizes = tuple(sorted(set(int(s) for s in compact_sizes), reverse=True))
+    every = snapshot_every if snapshot_every > 0 else (
+        1 if snapshot_path is not None else 0)
 
     def gather(state, idx):
         return type(state)(*(a.index_select(-1, idx) for a in state))
@@ -476,12 +631,20 @@ def make_chunked_batch_solver(problem: Problem,
             out.append(f)
         return type(full)(*out)
 
+    def to_host(state):
+        return type(state)(*(a.detach().cpu().numpy() for a in state))
+
+    def to_device(host_state):
+        return type(host_state)(*(torch.as_tensor(a).to(device)
+                                  for a in host_state))
+
     @highest_precision
     def solve_fn(xs0, us0):
         xs_bl = xs0.to(device).movedim(0, -1).contiguous()
         us_bl = us0.to(device).movedim(0, -1).contiguous()
         B = xs_bl.shape[-1]
         state = initial_state(xs_bl, us_bl, config, lane_shape=(B,))
+        n_passes = 0
         # Straggler-compaction bookkeeping: ``full`` holds the finished
         # lanes of the ORIGINAL batch, ``cur_idx`` maps each current lane to
         # its original index, ``cur_ref`` is x_ref gathered likewise.
@@ -491,16 +654,60 @@ def make_chunked_batch_solver(problem: Problem,
         cur_ref = x_ref_bl
         engine = make_batch_last_engine(problem, cur_ref, config)
 
-        n_passes = 0
+        def merged():
+            return state if full is None else scatter(full, state, cur_idx)
+
+        # The host snapshot: (full-batch state as numpy, passes).
+        snapshot = (to_host(state), 0) if every else None
+        if snapshot_path is not None and os.path.exists(snapshot_path):
+            # Cross-process resume: an earlier process saved its progress.
+            saved = load_solver_state(snapshot_path, {
+                "state": snapshot[0], "n_passes": np.int64(0)})
+            snapshot = (saved["state"], int(saved["n_passes"]))
+            state, n_passes = to_device(snapshot[0]), snapshot[1]
+
+        chunk_idx = 0
+        retries = 0
         while True:
-            k = 0
-            # One host synchronization per test of the condition.
-            while (k < iter_chunk and n_passes < config.max_iter
-                   and bool(torch.any(state.status == running_code))):
-                state = ilqr_step(engine, config, state)[0]
-                n_passes += 1
-                k += 1
-            n_running = int(torch.sum(state.status == running_code))
+            try:
+                if _fault_hook is not None:
+                    _fault_hook(chunk_idx)
+                k = 0
+                # One host synchronization per test of the condition.
+                while (k < iter_chunk and n_passes < config.max_iter
+                       and bool(torch.any(state.status == running_code))):
+                    state = ilqr_step(engine, config, state)[0]
+                    n_passes += 1
+                    k += 1
+                # This read is the synchronize that surfaces a deferred
+                # device fault of the chunk, so it stays inside the try.
+                n_running = int(torch.sum(state.status == running_code))
+            except torch.AcceleratorError:
+                if snapshot is None or retries >= max_retries:
+                    raise
+                retries += 1
+                # Probe the device: a sticky error raises here at once
+                # instead of burning retries.  (There is no compiled
+                # program to drop before retrying, unlike the JAX
+                # package's run_chunk.clear_cache(); eager torch reruns the
+                # same code.)
+                torch.zeros((), device=device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                # A snapshot holds the full batch: restoring it undoes any
+                # compaction (the next chunks compact again).
+                state, n_passes = to_device(snapshot[0]), snapshot[1]
+                full, cur_idx, cur_ref = None, None, x_ref_bl
+                engine = make_batch_last_engine(problem, cur_ref, config)
+                continue
+            retries = 0  # max_retries bounds CONSECUTIVE faults
+            chunk_idx += 1
+            if every and chunk_idx % every == 0:
+                snapshot = (to_host(merged()), n_passes)
+                if snapshot_path is not None:
+                    save_solver_state(snapshot_path, {
+                        "state": snapshot[0],
+                        "n_passes": np.int64(n_passes)})
             if on_chunk is not None and on_chunk(n_passes, n_running):
                 break
             if n_running == 0 or n_passes >= config.max_iter:
@@ -528,9 +735,9 @@ def make_chunked_batch_solver(problem: Problem,
                         cur_ref = x_ref_bl.index_select(-1, cur_idx)
                         engine = make_batch_last_engine(problem, cur_ref,
                                                         config)
-        if full is not None:
-            state = scatter(full, state, cur_idx)
-        return _result_from_state(problem, state, x_ref_bl)
+        if snapshot_path is not None and os.path.exists(snapshot_path):
+            os.remove(snapshot_path)
+        return _result_from_state(problem, merged(), x_ref_bl)
 
     return solve_fn
 

@@ -54,6 +54,10 @@
 //    shorten it, and spreading a lane over several threads would add
 //    shuffles to a step of some 600 instructions.
 //  * The ragged edge is `if (b >= B) return;`: no padding of the batch.
+//  * Instantiated at (4, 2), the 2-link arm, and (5, 2), the 2-link arm with
+//    the augmented Lagrangian's step-index coordinate (al.py).  A lane's
+//    batch-first blocks at (5, 2) are not whole 16-byte chunks (25 values
+//    of A), so there the ring takes one value a copy and a read (Row::VEC).
 //
 // Built with -DRICCATI_STAGE_CLOCKS (a second library, never on the main
 // path) every lane adds the clock64() cycles of each stage of a step into a
@@ -74,7 +78,13 @@ constexpr int kMaxSharedBytes = 232448;
 enum { BATCH_LAST = 0, BATCH_FIRST = 1 };
 
 // Where a lane's values of a step lie in its row of the ring: A, Qxx, B, Pux,
-// qx, Ruu, ru, every block starting on 16 bytes (ru on 8 in float32).
+// qx, Ruu, ru.  VEC: every block but ru is whole 16-byte chunks and ru one
+// chunk of 8 or 16 bytes, so that every block starts on 16 bytes (ru on 8 in
+// float32), in global memory batch-first and in the row; then batch-first
+// copies and reads move 16 bytes at a time, else one value at a time.
+template <typename T> constexpr bool whole_chunks(int count) {
+  return (count * (int)sizeof(T)) % 16 == 0;
+}
 template <typename T, int N, int M> struct Row {
   static constexpr int A = 0;
   static constexpr int Qxx = A + N * N;
@@ -84,7 +94,12 @@ template <typename T, int N, int M> struct Row {
   static constexpr int Ruu = qx + N;
   static constexpr int ru = Ruu + M * M;
   static constexpr int USED = ru + M;
-  static constexpr int LEN = sizeof(T) == 4 ? 60 : 62;
+  static constexpr bool VEC =
+      whole_chunks<T>(N * N) && whole_chunks<T>(N * M) && whole_chunks<T>(N) &&
+      whole_chunks<T>(M * M) && (whole_chunks<T>(M) || M * sizeof(T) == 8);
+  // An odd number of 16-byte units (VEC) or of values, so that a quarter
+  // warp's reads of a step fall on distinct banks.
+  static constexpr int LEN = VEC ? (sizeof(T) == 4 ? 60 : 62) : (USED | 1);
   static constexpr int SLOT = LEN * kThreads;
   static constexpr int BYTES = RING * SLOT * (int)sizeof(T);
   static_assert(USED <= LEN, "a step does not fit a row");
@@ -122,14 +137,17 @@ __device__ __forceinline__ long long clock_now() { return clock64(); }
 // COUNT values of one lane's step into the ring: batch-last one value a
 // copy (into element e of the step, the warp's lanes side by side; slot is
 // the step's slot), batch-first in chunks of up to 16 bytes (slot is the
-// lane's row).
-template <typename T, int COUNT, int LAYOUT>
+// lane's row), or one value a copy where the row is not VEC.
+template <typename T, int COUNT, int LAYOUT, bool VEC>
 __device__ __forceinline__ void copy_in(T* slot, int off, const T* src,
                                         long long B, int lane) {
   if constexpr (LAYOUT == BATCH_LAST) {
 #pragma unroll
     for (int e = 0; e < COUNT; ++e)
       cp_async<sizeof(T)>(slot + (off + e) * kThreads + lane, src + (long long)e * B);
+  } else if constexpr (!VEC) {
+#pragma unroll
+    for (int e = 0; e < COUNT; ++e) cp_async<sizeof(T)>(slot + off + e, src + e);
   } else {
     constexpr int BYTES = (COUNT * sizeof(T)) % 16 == 0 ? 16 : (int)(COUNT * sizeof(T)) % 16;
     constexpr int PER = BYTES / sizeof(T);
@@ -143,13 +161,18 @@ __device__ __forceinline__ void copy_in(T* slot, int off, const T* src,
 // COUNT values of one lane's step out of the ring into registers: batch-last
 // one value a load (element e of the warp's lanes side by side), batch-first
 // 16 bytes a load from the lane's row (8 for ru in float32), whose 16-byte
-// stride is odd, so that a quarter warp's loads fall on distinct banks.
-template <typename T, int COUNT, int LAYOUT>
+// stride is odd, so that a quarter warp's loads fall on distinct banks; one
+// value a load where the row is not VEC.
+template <typename T, int COUNT, int LAYOUT, bool VEC>
 __device__ __forceinline__ void read_block(const T* slot, int off, int lane, int len,
                                            T* v) {
   if constexpr (LAYOUT == BATCH_LAST) {
 #pragma unroll
     for (int e = 0; e < COUNT; ++e) v[e] = slot[(off + e) * kThreads + lane];
+  } else if constexpr (!VEC) {
+    const T* row = slot + lane * len + off;
+#pragma unroll
+    for (int e = 0; e < COUNT; ++e) v[e] = row[e];
   } else {
     const T* row = slot + lane * len + off;
     if constexpr (sizeof(T) == 4 && COUNT % 4 == 0) {
@@ -238,23 +261,23 @@ riccati_kernel(const scalar_t* __restrict__ As, const scalar_t* __restrict__ Bs,
     const long long t = T - 1 - it;
     scalar_t* slot = ring + (it % RING) * R::SLOT;
     if (LAYOUT == BATCH_LAST) {
-      copy_in<scalar_t, N * N, LAYOUT>(slot, R::A, As + t * N * N * B + b, B, lane);
-      copy_in<scalar_t, N * N, LAYOUT>(slot, R::Qxx, Qxx + t * N * N * B + b, B, lane);
-      copy_in<scalar_t, N * M, LAYOUT>(slot, R::Bm, Bs + t * N * M * B + b, B, lane);
-      copy_in<scalar_t, M * N, LAYOUT>(slot, R::Pux, Pux + t * M * N * B + b, B, lane);
-      copy_in<scalar_t, N, LAYOUT>(slot, R::qx, qx + t * N * B + b, B, lane);
-      copy_in<scalar_t, M * M, LAYOUT>(slot, R::Ruu, Ruu + t * M * M * B + b, B, lane);
-      copy_in<scalar_t, M, LAYOUT>(slot, R::ru, ru + t * M * B + b, B, lane);
+      copy_in<scalar_t, N * N, LAYOUT, R::VEC>(slot, R::A, As + t * N * N * B + b, B, lane);
+      copy_in<scalar_t, N * N, LAYOUT, R::VEC>(slot, R::Qxx, Qxx + t * N * N * B + b, B, lane);
+      copy_in<scalar_t, N * M, LAYOUT, R::VEC>(slot, R::Bm, Bs + t * N * M * B + b, B, lane);
+      copy_in<scalar_t, M * N, LAYOUT, R::VEC>(slot, R::Pux, Pux + t * M * N * B + b, B, lane);
+      copy_in<scalar_t, N, LAYOUT, R::VEC>(slot, R::qx, qx + t * N * B + b, B, lane);
+      copy_in<scalar_t, M * M, LAYOUT, R::VEC>(slot, R::Ruu, Ruu + t * M * M * B + b, B, lane);
+      copy_in<scalar_t, M, LAYOUT, R::VEC>(slot, R::ru, ru + t * M * B + b, B, lane);
     } else {
       const long long bt = b * T + t;
       scalar_t* row = slot + lane * R::LEN;
-      copy_in<scalar_t, N * N, LAYOUT>(row, R::A, As + bt * N * N, B, lane);
-      copy_in<scalar_t, N * N, LAYOUT>(row, R::Qxx, Qxx + bt * N * N, B, lane);
-      copy_in<scalar_t, N * M, LAYOUT>(row, R::Bm, Bs + bt * N * M, B, lane);
-      copy_in<scalar_t, M * N, LAYOUT>(row, R::Pux, Pux + bt * M * N, B, lane);
-      copy_in<scalar_t, N, LAYOUT>(row, R::qx, qx + bt * N, B, lane);
-      copy_in<scalar_t, M * M, LAYOUT>(row, R::Ruu, Ruu + bt * M * M, B, lane);
-      copy_in<scalar_t, M, LAYOUT>(row, R::ru, ru + bt * M, B, lane);
+      copy_in<scalar_t, N * N, LAYOUT, R::VEC>(row, R::A, As + bt * N * N, B, lane);
+      copy_in<scalar_t, N * N, LAYOUT, R::VEC>(row, R::Qxx, Qxx + bt * N * N, B, lane);
+      copy_in<scalar_t, N * M, LAYOUT, R::VEC>(row, R::Bm, Bs + bt * N * M, B, lane);
+      copy_in<scalar_t, M * N, LAYOUT, R::VEC>(row, R::Pux, Pux + bt * M * N, B, lane);
+      copy_in<scalar_t, N, LAYOUT, R::VEC>(row, R::qx, qx + bt * N, B, lane);
+      copy_in<scalar_t, M * M, LAYOUT, R::VEC>(row, R::Ruu, Ruu + bt * M * M, B, lane);
+      copy_in<scalar_t, M, LAYOUT, R::VEC>(row, R::ru, ru + bt * M, B, lane);
     }
   };
 
@@ -295,13 +318,13 @@ riccati_kernel(const scalar_t* __restrict__ As, const scalar_t* __restrict__ Bs,
     // This step's local model, lane b.
     const scalar_t* slot = ring + (it % RING) * R::SLOT;
     scalar_t A[N][N], Bm[N][M], G[M][N], H[M][M], g[M], s_next[N], S_next[N][N];
-    read_block<scalar_t, N * N, LAYOUT>(slot, R::A, lane, R::LEN, &A[0][0]);
-    read_block<scalar_t, N * N, LAYOUT>(slot, R::Qxx, lane, R::LEN, &S_next[0][0]);
-    read_block<scalar_t, N * M, LAYOUT>(slot, R::Bm, lane, R::LEN, &Bm[0][0]);
-    read_block<scalar_t, M * N, LAYOUT>(slot, R::Pux, lane, R::LEN, &G[0][0]);
-    read_block<scalar_t, N, LAYOUT>(slot, R::qx, lane, R::LEN, s_next);
-    read_block<scalar_t, M * M, LAYOUT>(slot, R::Ruu, lane, R::LEN, &H[0][0]);
-    read_block<scalar_t, M, LAYOUT>(slot, R::ru, lane, R::LEN, g);
+    read_block<scalar_t, N * N, LAYOUT, R::VEC>(slot, R::A, lane, R::LEN, &A[0][0]);
+    read_block<scalar_t, N * N, LAYOUT, R::VEC>(slot, R::Qxx, lane, R::LEN, &S_next[0][0]);
+    read_block<scalar_t, N * M, LAYOUT, R::VEC>(slot, R::Bm, lane, R::LEN, &Bm[0][0]);
+    read_block<scalar_t, M * N, LAYOUT, R::VEC>(slot, R::Pux, lane, R::LEN, &G[0][0]);
+    read_block<scalar_t, N, LAYOUT, R::VEC>(slot, R::qx, lane, R::LEN, s_next);
+    read_block<scalar_t, M * M, LAYOUT, R::VEC>(slot, R::Ruu, lane, R::LEN, &H[0][0]);
+    read_block<scalar_t, M, LAYOUT, R::VEC>(slot, R::ru, lane, R::LEN, g);
     tick(1);
     // BtS = B'S;  g += B's;  G += BtS A;  H += BtS B.
     scalar_t BtS[M][N];
@@ -498,7 +521,8 @@ int launch(const void* const* in, const void* qxN, const void* QN,
   if (clocks != nullptr) return (int)cudaErrorInvalidValue;
 #endif
   if (B <= 0 || T < 0) return (int)cudaErrorInvalidValue;
-  if (path != nullptr) *path = layout == BATCH_FIRST ? 2 : 0;
+  if (path != nullptr)
+    *path = layout == BATCH_FIRST && Row<scalar_t, N, M>::VEC ? 2 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RICCATI_LAUNCH(LAYOUT)                                                   \
   (symmetrize ? launch_one<scalar_t, N, M, LAYOUT, true>(                        \
@@ -507,9 +531,11 @@ int launch(const void* const* in, const void* qxN, const void* QN,
                     in, qxN, QN, reg, duffs, Ks, dv1, dv2, T, B, clocks, st))
   if (layout == BATCH_LAST) return RICCATI_LAUNCH(BATCH_LAST);
   if (layout != BATCH_FIRST) return (int)cudaErrorInvalidValue;
-  // 16-byte copies of each lane's blocks, 16-byte stores of its gains.
+  // 16-byte copies of each lane's blocks (VEC rows), 16-byte stores of its
+  // gains where they are whole chunks.
   for (int k = 0; k < 7; ++k)
-    if (reinterpret_cast<uintptr_t>(in[k]) % 16) return (int)cudaErrorMisalignedAddress;
+    if (Row<scalar_t, N, M>::VEC && reinterpret_cast<uintptr_t>(in[k]) % 16)
+      return (int)cudaErrorMisalignedAddress;
   if (reinterpret_cast<uintptr_t>(duffs) % 16 || reinterpret_cast<uintptr_t>(Ks) % 16)
     return (int)cudaErrorMisalignedAddress;
   return RICCATI_LAUNCH(BATCH_FIRST);
@@ -522,8 +548,8 @@ int launch(const void* const* in, const void* qxN, const void* QN,
 // riccati_wide.cu's: the seven step inputs (A, B, qx, ru, Qxx, Pux, Ruu) as
 // an array of device pointers, then qxN, QN, reg, the four outputs, T, B,
 // symmetrize (0/1), layout (0 batch-last, 1 batch-first), where to write the
-// copy path taken (0: a value a copy, batch-last; 2: 16-byte copies,
-// batch-first; may be null), a [B, 4] int64 buffer of stage clocks (null
+// copy path taken (0: a value a copy; 2: 16-byte copies, batch-first; may
+// be null), a [B, 4] int64 buffer of stage clocks (null
 // unless built with -DRICCATI_STAGE_CLOCKS) and the CUDA stream; returns a
 // cudaError_t.
 #define RICCATI_EXPORT(NAME, SCALAR, N, M)                                       \
@@ -537,3 +563,5 @@ int launch(const void* const* in, const void* qxN, const void* QN,
 
 RICCATI_EXPORT(riccati_cuda_4x2_f32, float, 4, 2)
 RICCATI_EXPORT(riccati_cuda_4x2_f64, double, 4, 2)
+RICCATI_EXPORT(riccati_cuda_5x2_f32, float, 5, 2)
+RICCATI_EXPORT(riccati_cuda_5x2_f64, double, 5, 2)

@@ -4,7 +4,9 @@ Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (its batch-last entry
 ``riccati_scan_pallas_bl`` and its batch-first entry
 ``riccati_scan_pallas_batched``).  The kernel is written by hand for ``sm_90a``
 in two designs — ``csrc/riccati.cu``, one thread a lane with a ring of
-prefetched steps, for ``(n, m) = (4, 2)``; ``csrc/riccati_wide.cu``, a lane
+prefetched steps, for ``(n, m) = (4, 2)`` and ``(5, 2)`` (the 2-link arm
+under ``al.al_solve``, whose state carries the step index);
+``csrc/riccati_wide.cu``, a lane
 spread over four warps with its matrices in shared memory and its inputs
 brought in by TMA, for ``(16, 8)`` and ``(24, 12)`` (each source says why) —
 both reading either layout in place, selected by a layout argument, built
@@ -60,6 +62,9 @@ from ilqr_tpu_torch.ops import smallmat as sm
 KERNELS: Dict[Tuple[int, int, torch.dtype], str] = {
     (4, 2, torch.float32): "riccati_cuda_4x2_f32",
     (4, 2, torch.float64): "riccati_cuda_4x2_f64",
+    # The 2-link arm with the augmented Lagrangian's index coordinate.
+    (5, 2, torch.float32): "riccati_cuda_5x2_f32",
+    (5, 2, torch.float64): "riccati_cuda_5x2_f64",
     (16, 8, torch.float32): "riccati_cuda_16x8_f32",
     (16, 8, torch.float64): "riccati_cuda_16x8_f64",
     (24, 12, torch.float32): "riccati_cuda_24x12_f32",
@@ -68,7 +73,7 @@ KERNELS: Dict[Tuple[int, int, torch.dtype], str] = {
 
 # Launcher -> the source (csrc/<name>.cu) that exports it.
 LIBRARY: Dict[str, str] = {
-    name: "riccati" if key[:2] == (4, 2) else "riccati_wide"
+    name: "riccati" if key[:2] in ((4, 2), (5, 2)) else "riccati_wide"
     for key, name in KERNELS.items()
 }
 

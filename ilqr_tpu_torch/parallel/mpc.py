@@ -8,11 +8,14 @@ the first control and advancing the (simulated) plant.  A batch of
 scenarios is the same loop on leading batch axes (where the JAX package
 vmaps it); with ``backward_backend="pallas"`` each replan's backward pass
 then launches the CUDA kernel's batch-first entry.
+:func:`batch_mpc_run_chunked` runs a fleet in host chunks with a
+checkpoint file to resume from.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -63,24 +66,36 @@ def mpc_run(problem: Problem, x0: torch.Tensor, horizon: int, n_steps: int,
     x = x0
     xs, us, costs, iters, statuses = [x0], [], [], [], []
     for _ in range(n_steps):
-        xs_warm = rollout(functools.partial(problem_dynamics, problem), x,
-                          us_warm)
-        result = solve(problem, xs_warm, us_warm, config=config,
-                       device=device)
-        ok = result.status != int(Status.LINESEARCH_FAILED)
-        plan = torch.where(ok[..., None, None], result.us, us_warm)
-        u_apply = plan[..., 0, :]
-        x = plant(x, u_apply)
-        us_warm = torch.cat([plan[..., 1:, :], plan[..., -1:, :]], dim=-2)
+        x, us_warm, (u_apply, cost, it, status) = _replan(
+            problem, x, us_warm, config, plant, device)
         xs.append(x)
         us.append(u_apply)
-        costs.append(result.cost)
-        iters.append(result.iterations)
-        statuses.append(result.status)
+        costs.append(cost)
+        iters.append(it)
+        statuses.append(status)
     return MPCResult(xs=torch.stack(xs, dim=-2), us=torch.stack(us, dim=-2),
                      costs=torch.stack(costs, dim=-1),
                      iterations=torch.stack(iters, dim=-1),
                      statuses=torch.stack(statuses, dim=-1))
+
+
+def _replan(problem: Problem, x, us_warm, config: ILQRConfig, plant,
+            device):
+    """One control step of every scenario: solve from the warm start, fall
+    back to it where the solve ends ``LINESEARCH_FAILED``, apply the plan's
+    first control to the plant and shift the plan.  Returns ``(x_next,
+    us_warm_next, (u_apply, cost, iterations, status))``."""
+
+    xs_warm = rollout(functools.partial(problem_dynamics, problem), x,
+                      us_warm)
+    result = solve(problem, xs_warm, us_warm, config=config, device=device)
+    ok = result.status != int(Status.LINESEARCH_FAILED)
+    plan = torch.where(ok[..., None, None], result.us, us_warm)
+    u_apply = plan[..., 0, :]
+    x_next = plant(x, u_apply)
+    us_next = torch.cat([plan[..., 1:, :], plan[..., -1:, :]], dim=-2)
+    return x_next, us_next, (u_apply, result.cost, result.iterations,
+                             result.status)
 
 
 def make_mpc_runner(problem: Problem, horizon: int, n_steps: int,
@@ -103,3 +118,98 @@ def batch_mpc_run(problem: Problem, x0s: torch.Tensor, horizon: int,
     batch axis (:func:`mpc_run` on the batch)."""
 
     return mpc_run(problem, x0s, horizon, n_steps, config, device=device)
+
+
+def batch_mpc_run_chunked(problem: Problem, x0s: torch.Tensor, horizon: int,
+                          n_steps: int,
+                          config: ILQRConfig = DEFAULT_CONFIG,
+                          step_chunk: int = 10,
+                          checkpoint_path: Optional[str] = None,
+                          checkpoint_every: int = 1,
+                          on_chunk=None, device=None) -> MPCResult:
+    """Checkpointable scenario-batched MPC for long fleet runs.
+
+    Same results as :func:`batch_mpc_run`, but the ``n_steps`` control
+    steps run in host chunks of ``step_chunk`` steps, and (with
+    ``checkpoint_path``) the whole run state — the MPC carry ``(x,
+    us_warm)`` and every per-step output so far, as numpy host accumulators
+    with the JAX package's keys and dtypes (``step`` int64, ``x``,
+    ``us_warm``, ``xs``, ``us``, ``costs`` in the input's type, ``iters``
+    and ``statuses`` int32) — is saved every ``checkpoint_every`` chunks and
+    after the last with :func:`ilqr_tpu_torch.utils.checkpoint.
+    save_solver_state`.  If ``checkpoint_path`` exists when the run starts,
+    the run RESUMES from the saved step; a file of the JAX package's
+    ``batch_mpc_run_chunked`` resumes here too.
+
+    ``n_steps`` must be divisible by ``step_chunk``.  ``on_chunk(step)``
+    streams progress; return True to stop early (the partial result is
+    checkpointed and returned, the remaining steps zero-filled).  Runs on
+    ``device`` (default: the card); the result lies there.
+    """
+
+    import numpy as np
+
+    from ilqr_tpu_torch.utils.checkpoint import (load_solver_state,
+                                                 save_solver_state)
+
+    assert n_steps % step_chunk == 0, (n_steps, step_chunk)
+    device = resolve_device(device)
+    B, n = x0s.shape
+    m = problem.control_dim
+    n_chunks = n_steps // step_chunk
+    plant = functools.partial(problem_dynamics, problem)
+
+    # Host accumulators, preallocated so that the checkpoint has a fixed
+    # structure at every step.
+    x0_host = x0s.detach().cpu().numpy()
+    dtype = x0_host.dtype
+    state = {
+        "step": np.zeros((), np.int64),
+        "x": x0_host,
+        "us_warm": np.zeros((B, horizon, m), dtype),
+        "xs": np.zeros((n_steps, B, n), dtype),
+        "us": np.zeros((n_steps, B, m), dtype),
+        "costs": np.zeros((n_steps, B), dtype),
+        "iters": np.zeros((n_steps, B), np.int32),
+        "statuses": np.zeros((n_steps, B), np.int32),
+    }
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        state = load_solver_state(checkpoint_path, state)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    start_chunk = int(state["step"]) // step_chunk
+    x = torch.as_tensor(state["x"]).to(device)
+    us_warm = torch.as_tensor(state["us_warm"]).to(device)
+    for ci in range(start_chunk, n_chunks):
+        lo = ci * step_chunk
+        for k in range(lo, lo + step_chunk):
+            x, us_warm, (u_apply, cost, it, status) = _replan(
+                problem, x, us_warm, config, plant, device)
+            state["xs"][k] = host(x)
+            state["us"][k] = host(u_apply)
+            state["costs"][k] = host(cost)
+            state["iters"][k] = host(it)
+            state["statuses"][k] = host(status)
+        hi = lo + step_chunk
+        state["x"] = host(x)
+        state["us_warm"] = host(us_warm)
+        state["step"] = np.int64(hi)
+        if checkpoint_path is not None and (
+                (ci + 1 - start_chunk) % checkpoint_every == 0
+                or ci == n_chunks - 1):
+            save_solver_state(checkpoint_path, state)
+        if on_chunk is not None and on_chunk(hi):
+            break
+
+    xs = np.concatenate([x0_host[None], state["xs"]], axis=0)
+
+    def out(a):
+        return torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 1, 0))
+                               ).to(device)
+
+    return MPCResult(xs=out(xs), us=out(state["us"]),
+                     costs=out(state["costs"]),
+                     iterations=out(state["iters"]),
+                     statuses=out(state["statuses"]))

@@ -260,11 +260,20 @@ def test_dispatch_flattens_leading_axes():
 
 
 def test_associative_backend_raises():
+    """The parallel-in-time backend, refused until it was ported, now runs
+    and agrees with the JAX package's (``tests/test_torch_pit.py`` holds it
+    further); an unknown backend still raises and names itself."""
+
     cfg = ILQRConfig(backward_backend="associative", reg=0.0)
     xs = torch.zeros((5, 4), dtype=torch.float64)
     us = torch.zeros((4, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=r"pit\.py.*A9"):
-        tbw.backward_pass(make_two_link_problem(), xs, us, cfg)
+    got = tbw.backward_pass(make_two_link_problem(), xs, us, cfg)
+    want = jbw.backward_pass(jax_two_link(), jnp.zeros((5, 4)),
+                             jnp.zeros((4, 2)),
+                             JaxConfig(backward_backend="associative",
+                                       reg=0.0))
+    for name, g, w in zip(want._fields, got, want):
+        assert_close(g, w, 1e-9, 1e-12, err_msg=name)
     with pytest.raises(NotImplementedError, match="no_such"):
         tbw.backward_pass(make_two_link_problem(), xs, us,
                           dataclasses.replace(cfg, backward_backend="no_such"))

@@ -13,8 +13,8 @@ straggler population compaction is for:
   same ``(passes, running)`` reported to ``on_chunk`` chunk by chunk, so the
   compaction fired at the same points;
 * ``on_chunk`` returning True stops the solve; ``x_ref`` follows the lanes
-  through the gather; the arguments of the host snapshots and the retry,
-  which are not ported, raise and name themselves.
+  through the gather; the arguments of the host snapshots and the retry
+  change nothing when no fault occurs.
 """
 
 import jax.numpy as jnp
@@ -148,11 +148,22 @@ REFUSED = {
 
 
 @pytest.mark.parametrize("arg", sorted(REFUSED))
-def test_unported_arguments_raise_and_name_themselves(arg):
-    with pytest.raises(NotImplementedError) as err:
-        make_chunked_batch_solver(make_two_link_problem(), device="cpu",
-                                  **REFUSED[arg])
-    assert arg in str(err.value)
+def test_unported_arguments_raise_and_name_themselves(arg, tmp_path):
+    """Refused until the host snapshots, the resume and the retry were
+    ported; now each argument is accepted and, with no fault, changes no
+    lane's result (``tests/test_torch_resilience.py`` tests what they do)."""
+
+    kw = dict(REFUSED[arg])
+    if "snapshot_path" in kw:
+        kw["snapshot_path"] = str(tmp_path / kw["snapshot_path"])
+    tp, xs0, us0 = ramp_inputs()
+    cfg = config_from_fields(FLAGS)
+    ref = make_chunked_batch_solver(tp, cfg, iter_chunk=2,
+                                    device="cpu")(xs0, us0)
+    res = make_chunked_batch_solver(tp, cfg, iter_chunk=2, device="cpu",
+                                    **kw)(xs0, us0)
+    assert_results_equal(res, ref)
+    assert not (tmp_path / "state.npz").exists()
 
 
 def test_default_device_is_the_card():

@@ -35,6 +35,10 @@ import ilqr_tpu_torch.parallel.batching, ilqr_tpu_torch.models
 import ilqr_tpu_torch.ops._build, ilqr_tpu_torch.ops.cuda_riccati
 import ilqr_tpu_torch.ops.linalg, ilqr_tpu_torch.models.rbd
 import ilqr_tpu_torch.models.rbd.kinematics
+import ilqr_tpu_torch.pit, ilqr_tpu_torch.al, ilqr_tpu_torch.constraints
+import ilqr_tpu_torch.costs, ilqr_tpu_torch.parallel.mpc
+import ilqr_tpu_torch.utils.checkpoint, ilqr_tpu_torch.utils.metrics
+import ilqr_tpu_torch.utils.profiling
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ilqr_tpu"))
@@ -133,14 +137,26 @@ UNPORTED = {
 @pytest.mark.parametrize("flag", sorted(UNPORTED))
 def test_unported_flags_raise_and_name_the_flag(flag):
     """The JAX fused engine ignores the first three silently; the port
-    refuses all four, at the engine and through every entry point."""
+    refuses them, at the engine and through every entry point (they belong
+    to the per-scenario engine in both packages, ROADMAP C1).  The fourth,
+    the parallel-alpha ladder, is ported: the fused engine accepts it and
+    makes the sequential ladder's decisions."""
 
     problem = make_two_link_problem()
     cfg = ILQRConfig(**UNPORTED[flag])
-    with pytest.raises(NotImplementedError, match=flag):
-        make_batch_last_engine(problem, None, cfg)
     x0s = torch.zeros((2, 4), dtype=torch.float64)
     us0 = torch.zeros((2, 3, 2), dtype=torch.float64)
+    if flag == "parallel_alpha_block":
+        make_batch_last_engine(problem, None, cfg)
+        x0s = x0s + torch.tensor([0.3, 0.7, 0.2, 0.5], dtype=torch.float64)
+        par = batch_solve(problem, x0s, us0, config=cfg, device="cpu")
+        seq = batch_solve(problem, x0s, us0, config=ILQRConfig(),
+                          device="cpu")
+        for name, a, b in zip(par._fields, par, seq):
+            assert torch.equal(a, b), name
+        return
+    with pytest.raises(NotImplementedError, match=flag):
+        make_batch_last_engine(problem, None, cfg)
     with pytest.raises(NotImplementedError, match=flag):
         batch_solve(problem, x0s, us0, config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=flag):

@@ -113,7 +113,7 @@ def test_wrapper_raises_on_missing_instantiation():
         cuda_riccati.kernel_name(3, 1, torch.float64)
     with pytest.raises(NotImplementedError, match="float16"):
         cuda_riccati.kernel_name(4, 2, torch.float16)
-    for n, m in ((4, 2), (16, 8), (24, 12)):
+    for n, m in ((4, 2), (5, 2), (16, 8), (24, 12)):
         for dtype in (torch.float32, torch.float64):
             name = cuda_riccati.kernel_name(n, m, dtype)
             assert name in cuda_riccati.launch_counts

@@ -186,7 +186,7 @@ def _shapes_bf(n, m, B, T):
 
 @pytest.mark.parametrize("layout", [BATCH_LAST, BATCH_FIRST],
                          ids=["batch_last", "batch_first"])
-@pytest.mark.parametrize("n,m", [(4, 2), (16, 8), (24, 12)])
+@pytest.mark.parametrize("n,m", [(4, 2), (5, 2), (16, 8), (24, 12)])
 def test_layout_argument_reads_the_shapes(n, m, layout):
     B, T = 4099, 7
     bf = [torch.empty(s) for s in _shapes_bf(n, m, B, T)]
@@ -222,8 +222,9 @@ def test_layout_argument_checks_each_input(layout, k):
 
 # Each instantiation at one lane and at a ragged batch: the batch-first
 # widths chip_smoke.py launches on the card for the wide kernel, the
-# ragged width of its batch-last checks for (4, 2).
-RAGGED = {(4, 2): 4099, (16, 8): 65, (24, 12): 67}
+# ragged width of its batch-last checks for (4, 2), one warp and a lane for
+# (5, 2).
+RAGGED = {(4, 2): 4099, (5, 2): 33, (16, 8): 65, (24, 12): 67}
 ENTRY_CASES = [(n, m, dtype, B) for n, m, dtype in INSTANTIATIONS
                for B in (1, RAGGED[(n, m)])]
 
@@ -265,7 +266,7 @@ def test_batch_first_equals_batch_last_on_the_card():
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for n, m in ((4, 2), (16, 8), (24, 12)):
+    for n, m in ((4, 2), (5, 2), (16, 8), (24, 12)):
         models = tuple(to_torch(a).cuda() for a in _models_bl(n, m, 9, 5, 1))
         bl = cuda_riccati.riccati_scan_cuda_bl(*models, 1e-2)
         bf = riccati_scan_cuda_batched(

@@ -15,6 +15,27 @@ torch.set_num_threads(1)
 
 NOMINAL = np.array([0.3, 0.7, 0.2, 0.5])
 
+# XLA's cheaper CPU code generation, for reference programs that run once,
+# so that their compile time is what counts.
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def jit_fast(fn, *example_args):
+    """``fn`` compiled by ``jax.jit`` with :data:`FAST_COMPILE` for the
+    shapes and types of ``example_args``."""
+
+    import jax
+
+    return jax.jit(fn).lower(*example_args).compile(
+        compiler_options=FAST_COMPILE)
+
+
+def jit_once(fn, *args):
+    """``fn(*args)``, compiled as :func:`jit_fast` compiles it."""
+
+    return jit_fast(fn, *args)(*args)
+
 
 def to_torch(x):
     return torch.as_tensor(np.array(x), dtype=torch.float64)
