@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --hashes [ROOT]   # only the fixed instantiations'
+                                            # output hashes (of the port in ROOT)
 
 Needs one CUDA card (written for an H100, ``sm_90a``) and ``nvcc``; with no
 card it exits non-zero and prints no result.  It imports nothing of JAX and
@@ -61,7 +63,7 @@ Phases, one JSON line each:
                 ``bench.py`` takes them) with the ``(16, 8)`` kernel.  The
                 solve runs at the reference's T=1000 if five passes (ten
                 times the pass timed at T=100) fit the budget, else at T=100
-                with ``max_iter=15``, and stops at a chunk boundary once half the
+                with ``max_iter=10``, and stops at a chunk boundary once half the
                 budget is spent.  Counts are set to 0 before and read after;
                 then the same passes with ``backward_backend="scan"``.  The
                 two backends are held to each other after ONE pass from the
@@ -130,9 +132,39 @@ Phases, one JSON line each:
 19. ``trace_profile``  ``solve_with_trace`` of one float64 scenario, one
                 fused pass under ``device_trace`` (the trace names the
                 Riccati kernel) and ``PhaseTimer``'s summary.
+20. ``shapes``  the kernel at shapes built at first use (``build`` also
+                starts their ``nvcc``, one library a shape and type):
+                ``(17, 8)`` (padded to (24, 8) in ``riccati_wide.cu``), and
+                check-only rows that no path launches: ``(7, 3)`` (padded
+                to (8, 4)), ``(6, 11)`` (more controls than states, padded
+                to (8, 12)), ``(3, 1)`` and ``(5, 5)`` (``riccati.cu``),
+                both entries, both types, seeded inputs at
+                B=256, T=100, against the plain version at the bars of
+                ``kernels``; time, bound, plain time, padded plan and the
+                bytes the source reports, copy path, nvcc seconds.  Then a
+                sha256 of the outputs of every fixed instantiation on
+                seeded inputs (:func:`instantiation_hashes`, which runs on
+                an older tree of the port too: equal hashes show their bits
+                did not move).
+21. ``al_rbd``  ``al_solve`` of the RBD 2-DoF arm with a joint-velocity cap
+                (n=17 with the index, m=8), B=64, T=50, float32, the kernel
+                at ``(17, 8)``, ``max_outer`` cut to a budget (printed),
+                against the same call with ``"scan"``; the ``(17, 8)``
+                kernel against its plain version on the local models of its
+                first launch, timed.
+22. ``sharded``  ``sharded_batch_solve`` on a world-size-1 NCCL group at the
+                main path's width (B=4096, T=100, float32, the kernel):
+                ``torch.equal`` to ``make_batch_solver(engine="vmap")``, the
+                reduced metrics equal to ``batch_metrics``' sums.
+23. ``entry``   ``entry.entry()`` once on the card and
+                ``entry.dryrun_multichip(1)`` (one NCCL rank, a process of
+                its own); then one ``pipeline`` line saying the two-stage
+                pipeline is not run here (one card; it needs two ranks).
 
 Then one line with every kernel's numbers (the batch-first entry in rows of
-its own, at each instantiation its path launched), and the last line
+its own, at each instantiation its path launched; the instantiations of
+``shapes`` that no path launched as rows with ``"check_only": true`` and
+``launches`` 0), and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -309,6 +341,16 @@ def check_kernel(models, reg, symmetrize):
     got = riccati_scan_cuda_bl(*models, reg, symmetrize=symmetrize)
     torch.cuda.synchronize()
     want = riccati_scan_plain_bl(*models, reg, symmetrize=symmetrize)
+    return hold(got, want, F32_REL_BOUND)
+
+
+def hold(got, want, f32_bound):
+    """The bars of :func:`check_kernel`, ``got`` against ``want``: float64
+    ``duffs``/``Ks`` to rtol 1e-10, atol 1e-12 and ``dv1``/``dv2`` to rtol
+    1e-9; float32 each output within ``f32_bound`` of ``want`` relative to
+    its largest magnitude.  Returns ``(max abs error, largest relative
+    error)``."""
+
     worst_abs, worst_rel = 0.0, 0.0
     for name, g, w in zip(("duffs", "Ks", "dv1", "dv2"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
@@ -319,7 +361,7 @@ def check_kernel(models, reg, symmetrize):
             torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
                                        msg=lambda m: f"{name}: {m}")
         else:
-            assert r <= F32_REL_BOUND, (name, r, F32_REL_BOUND)
+            assert r <= f32_bound, (name, r, f32_bound)
         worst_abs = max(worst_abs, float((g - w).abs().max()))
         worst_rel = max(worst_rel, r)
     return worst_abs, worst_rel
@@ -617,7 +659,10 @@ def phase_solve(problem, config, device):
 
 WIDE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_wide.cu"
 # snapshot_every: bench.py --config rbd's default (bench.py:388).
-RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=15, max_iter=100,
+# max_iter_cut: the passes of the cut solve, 10 (one chunk), cut from 15 so
+# that the phases added with the kernel at any shape and the multi-device
+# entry points fit the script's time (the width is unchanged).
+RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=10, max_iter=100,
            snapshot_every=4)
 SIX = dict(B=64, T=50, max_iter=15)
 # Seconds the RBD solve and its scan twin may take together: decides T, and
@@ -1267,8 +1312,8 @@ def count_batch_first(name):
     counts = dict(cuda_riccati.batched_launch_counts)
     assert sum(cuda_riccati.launch_counts.values()) == 0, (
         cuda_riccati.launch_counts)
-    assert sum(counts.values()) == counts[name], counts
-    return counts[name]
+    assert sum(counts.values()) == counts.get(name, 0), counts
+    return counts.get(name, 0)
 
 
 def phase_vmap_solve(problem, cfg, fused, device):
@@ -1502,7 +1547,9 @@ MPC_CHUNKED_BUDGET_S = 30.0
 # bench.py --config long_horizon: B=256, T=1000, max_iter=15, three backends.
 LONG = dict(B=256, T=1000, max_iter=15)
 # Seconds the three long-horizon solves may take together; caps max_iter.
-LONG_BUDGET_S = 120.0
+# Cut from 120 s (4 passes) to 60 s with RBD["max_iter_cut"], for the same
+# reason.
+LONG_BUDGET_S = 60.0
 # Float64 associative backward pass, card against the plain torch pit on
 # the CPU: the rtol of tests/test_torch_pit.py.
 LONG_F64 = dict(B=8, T=200, rtol=1e-9)
@@ -2153,12 +2200,413 @@ def phase_trace_profile(problem, device):
          phase_timer=timer.summary().splitlines())
 
 
-def ptxas_summary(_build):
+# ---------------------------------------------------------------------------
+# The kernel at any (n, m); al_solve on the RBD arm; multi-device.
+# ---------------------------------------------------------------------------
+
+# Shapes no fixed instantiation has, built at first use: the RBD 2-DoF arm
+# with al_solve's index coordinate (n=17, padded to (24, 8) in
+# riccati_wide.cu, launched by phase al_rbd), and check-only shapes that no
+# path of the system launches, one for each family route() serves: an odd
+# shape padded to (8, 4), more controls than states padded to (8, 12) (the
+# largest M served, past N), and riccati.cu's generic launcher at (3, 1) and
+# at (5, 5), its largest shape.
+NEW_SHAPES = ((17, 8), (7, 3), (6, 11), (3, 1), (5, 5))
+CHECK_ONLY_SHAPES = ((7, 3), (6, 11), (3, 1), (5, 5))
+SHAPES = dict(B=256, T=100)
+# The fixed instantiations whose outputs are hashed, on seeded inputs of
+# this size: the same hashes on the tree before the kernel learned to pad
+# show that their bits did not move.
+HASH_SHAPES = ((4, 2), (5, 2), (16, 8), (24, 12))
+HASH = dict(B=64, T=50, seed=123)
+# al_solve of the RBD 2-DoF arm with a joint-velocity cap, float32, through
+# the per-scenario engine with the kernel at (17, 8): inner solves of at
+# most 5 passes with a 4-rung ladder and Tassa regularization (rbd_config),
+# max_outer cut so that the kernel run and its scan twin fit AL_RBD_BUDGET_S.
+AL_RBD = dict(B=64, T=50, v_max=2.0, max_iter=5, max_backtracks=4,
+              max_outer=10)
+AL_RBD_BUDGET_S = 60.0
+# The 2-link at the main path's width through sharded_batch_solve on a
+# world-size-1 NCCL group.
+SHARDED = dict(B=4096, T=100)
+PIPELINE_NOTE = ("not run on the card: one H100, and the two-stage pipeline "
+                 "needs two ranks; tests/test_torch_pipeline.py holds it "
+                 "against the fused solve on two Gloo ranks on the CPU")
+
+
+def synthetic_models(n, m, B, T, seed, device, dtype=torch.float64):
+    """Batch-last local models ``(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)``
+    of a stable, well-conditioned problem, drawn in float64 on the CPU from
+    ``seed`` (the same numbers on any tree), then cast and moved."""
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    f64 = dict(dtype=torch.float64)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, **f64)
+
+    def spd(k, scale):
+        X = randn(T, k, k, B) / k ** 0.5
+        return (torch.einsum("tikb,tjkb->tijb", X, X) * scale
+                + torch.eye(k, **f64)[None, :, :, None])
+
+    models = (0.9 * torch.eye(n, **f64)[None, :, :, None]
+              + 0.1 * randn(T, n, n, B) / n ** 0.5,
+              0.3 * randn(T, n, m, B), 0.1 * randn(T, n, B),
+              0.1 * randn(T, m, B), 0.1 * spd(n, 0.5),
+              0.05 * randn(T, m, n, B), spd(m, 0.2), randn(n, B),
+              spd(n, 1.0)[0])
+    return tuple(x.to(dtype).to(device).contiguous() for x in models)
+
+
+def instantiation_hashes(device):
+    """sha256 of the outputs of each fixed instantiation (batch-last and
+    batch-first entries, both types) on seeded inputs.  Uses only what every
+    tree of the port has, so that the same function can hash an older
+    tree's kernels."""
+
+    import hashlib
+
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    out = {}
+    for n, m in HASH_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            models = synthetic_models(n, m, HASH["B"], HASH["T"],
+                                      HASH["seed"] + n, device, dtype)
+            reg = torch.logspace(-3, 0, HASH["B"], dtype=dtype, device=device)
+            bf = tuple(x.movedim(-1, 0).contiguous() for x in models)
+            for entry, outs in (
+                    ("batch_last", cuda_riccati.riccati_scan_cuda_bl(
+                        *models, reg)),
+                    ("batch_first", cuda_riccati.riccati_scan_cuda_batched(
+                        *bf, reg))):
+                h = hashlib.sha256()
+                for x in outs:
+                    h.update(x.contiguous().cpu().numpy().tobytes())
+                out[f"{cuda_riccati.KERNELS[(n, m, dtype)]}:{entry}"] = (
+                    h.hexdigest())
+    return out
+
+
+def phase_shapes(device, built):
+    """The kernel at the shapes of NEW_SHAPES, built at first use: both
+    entries, both types, on seeded inputs at B=256, T=100, against the plain
+    version at the existing bars (``symmetrize`` off too, in float64), the
+    two entries equal (``torch.equal``); the time beside the bound (logical
+    bytes read and written once over 3.35 TB/s) and the plain version's, the
+    padded plan and its bytes, the copy path, the ``nvcc`` seconds of the
+    new libraries (``built``).  Then the hashes of the fixed
+    instantiations' outputs.  Returns ``(batch-last rows, batch-first
+    rows)`` for the ``kernels`` line."""
+
+    from ilqr_tpu_torch.ops import _build, cuda_riccati
+    from ilqr_tpu_torch.ops.cuda_riccati import (from_batch_last,
+                                                 riccati_scan_cuda_batched,
+                                                 riccati_scan_cuda_bl,
+                                                 riccati_scan_plain_bl)
+
+    B, T = SHAPES["B"], SHAPES["T"]
+    rows_bl, rows_bf = {}, {}
+    for n, m in NEW_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            bl = synthetic_models(n, m, B, T, 7 * n + m, device, dtype)
+            bf = tuple(x.movedim(-1, 0).contiguous() for x in bl)
+            reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
+            name = cuda_riccati.kernel_name(n, m, dtype)
+            source, NP, MP = cuda_riccati.route(n, m)
+            got = riccati_scan_cuda_bl(*bl, reg)
+            path_bl = last_copy_path()
+            got_bf = riccati_scan_cuda_batched(*bf, reg)
+            path_bf = last_copy_path()
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            plain = riccati_scan_plain_bl(*bl, reg)
+            b.record()
+            torch.cuda.synchronize()
+            plain_ms = a.elapsed_time(b)
+            max_abs, max_rel = hold(got, plain, F32_REL_BOUND)
+            for g, e in zip(got_bf, from_batch_last(got)):
+                assert torch.equal(g, e), (name, "batch-first != batch-last")
+            if dtype == torch.float64:
+                hold(riccati_scan_cuda_bl(*bl, reg, symmetrize=False),
+                     riccati_scan_plain_bl(*bl, reg, symmetrize=False),
+                     F32_REL_BOUND)
+            bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
+            library = cuda_riccati.library_and_symbol(n, m, dtype)[0]
+            # The padded plan's shared memory, as the source reckons it.
+            plan_bytes = (
+                _build.load(library).riccati_cuda_instance_shared_bytes()
+                if source == "riccati_wide" else None)
+            common = dict(
+                n=n, m=m, B=B, T=T, source=source, padded=[NP, MP],
+                plan_bytes=plan_bytes,
+                library=library,
+                nvcc_s=built.get(library), max_abs_err=max_abs,
+                max_rel_err=max_rel,
+                rel_bound=1e-10 if dtype == torch.float64 else F32_REL_BOUND,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None,
+                check_only=(n, m) in CHECK_ONLY_SHAPES)
+            rows_bl[name] = dict(
+                common, copy_path=path_bl,
+                ms=device_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20),
+                call_ms=sync_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20))
+            rows_bf[name] = dict(
+                common, copy_path=path_bf, equal_to_batch_last=True,
+                ms=device_time(lambda: riccati_scan_cuda_batched(*bf, reg),
+                               20),
+                batch_last_ms=rows_bl[name]["ms"])
+            del bl, bf, got, got_bf, plain
+    emit(phase="shapes", rows_batch_last=rows_bl, rows_batch_first=rows_bf,
+         f64_rtol=1e-10, f32_rel_bound=F32_REL_BOUND,
+         hashes_of_fixed_instantiations=instantiation_hashes(device),
+         hash_inputs=HASH)
+    return rows_bl, rows_bf
+
+
+def phase_al_rbd(cases, device):
+    """``al_solve`` of the RBD 2-DoF arm with a joint-velocity cap, B=64,
+    T=50, float32, ``backward_backend="pallas"``: the index coordinate makes
+    the state n=17, so every inner backward pass launches the batch-first
+    entry of the ``(17, 8)`` instantiation (padded to (24, 8) in
+    ``riccati_wide.cu``).  ``max_outer`` cut to AL_RBD_BUDGET_S (printed).
+    Held against the same call with ``"scan"``: ``status`` equal, and ``us``
+    as the RBD solves are held after a cut solve (the median lane within
+    F32_SOLVE_MEDIAN_BOUND_RBD of max|us|, the cost of every lane within
+    F32_SOLVE_COST_BOUND_RBD; the worst lane printed).  Then the ``(17, 8)``
+    kernel at this phase's shapes against its plain version, on what its
+    first launch was handed (as phase ``al`` holds ``(5, 2)``)."""
+
+    import functools
+
+    from ilqr_tpu_torch import al
+    from ilqr_tpu_torch.config import Status
+    from ilqr_tpu_torch.derivatives import (problem_linearize,
+                                            problem_quadratize_final,
+                                            problem_quadratize_running)
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.problem import problem_dynamics, rollout
+
+    case = cases[False]
+    problem = case[0]
+    B, T = AL_RBD["B"], AL_RBD["T"]
+    x0s, us0 = rbd_inputs(case, B, T, torch.float32, 31, device)
+    v_max = AL_RBD["v_max"]
+
+    def cap(x, u):
+        # |joint velocity| <= v_max: the last two state components (the
+        # state's components lead, batch axes trail).
+        v = torch.as_tensor(v_max, dtype=x.dtype, device=x.device)
+        return torch.cat([x[-2:] - v, -x[-2:] - v])
+
+    def run(backend, max_outer):
+        cfg = rbd_config(AL_RBD["max_iter"], T, backend).replace(
+            max_backtracks=AL_RBD["max_backtracks"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = al.al_solve(problem, x0s, us0, cap, config=cfg,
+                          al_config=al.ALConfig(max_outer=max_outer),
+                          device=device)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    name = cuda_riccati.kernel_name(problem.state_dim + 1,
+                                    problem.control_dim, torch.float32)
+    # One outer iteration sets the cut; it is the run itself where the
+    # budget allows no more.
+    cuda_riccati.reset_launch_counts()
+    res, one_s = run("pallas", 1)
+    solve_s = one_s
+    max_outer = max(1, min(AL_RBD["max_outer"],
+                           int(AL_RBD_BUDGET_S / (2 * one_s))))
+    if max_outer < AL_RBD["max_outer"]:
+        print(f"chip_smoke: al_rbd: max_outer cut from {AL_RBD['max_outer']} "
+              f"to {max_outer} by the {AL_RBD_BUDGET_S} s budget",
+              file=sys.stderr, flush=True)
+    if max_outer > 1:
+        cuda_riccati.reset_launch_counts()
+        res, solve_s = run("pallas", max_outer)
+    launches = count_batch_first(name)
+    assert launches >= int(res.outer_iterations.max()) >= 1, launches
+    cuda_riccati.reset_launch_counts()
+    ref, scan_s = run("scan", max_outer)
+    assert cuda_riccati.launches() == 0
+    for r in (res, ref):
+        assert r.us.shape == (B, T, problem.control_dim)
+        assert r.us.dtype == torch.float32
+        assert bool(torch.isfinite(r.us).all())
+    assert torch.equal(res.status, ref.status), (res.status, ref.status)
+    scale = float(ref.us.abs().max())
+    lane_rel = ((res.us - ref.us).abs().amax(dim=(1, 2)) / scale)
+    cost_rel = ((res.cost - ref.cost).abs() / ref.cost.abs())
+    median = float(lane_rel.median())
+    assert median <= F32_SOLVE_MEDIAN_BOUND_RBD, median
+    assert float(cost_rel.max()) <= F32_SOLVE_COST_BOUND_RBD, cost_rel.max()
+    by_status = {Status(int(c)).name: int((res.status == c).sum())
+                 for c in res.status.unique()}
+
+    # The (17, 8) kernel on the local models of the first augmented problem
+    # (multipliers 0, penalty mu0) at the rollout of zero controls: what its
+    # first launch was handed.  A lane's batch-first step is not whole
+    # 16-byte rows at n=17, so every launch copies per element.
+    n_aug, m = problem.state_dim + 1, problem.control_dim
+    p = 4
+    lanes = torch.arange(B, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    prob_al = al._augment_problem(
+        problem, cap, None, torch.zeros((B * T, p), **f32),
+        torch.zeros((B, 1), **f32),
+        torch.full((B,), al.ALConfig().mu0, **f32),
+        torch.zeros(p, dtype=torch.bool, device=device),
+        torch.zeros(1, dtype=torch.bool, device=device), T)
+    x0_aug = torch.cat([x0s, (lanes * T).to(torch.float32)[:, None]], dim=-1)
+    xs_aug = rollout(functools.partial(problem_dynamics, prob_al), x0_aug,
+                     us0)
+    As, Bs = problem_linearize(prob_al, xs_aug[:, :-1], us0)
+    _q, qx, ru, Qxx, Pux, Ruu = problem_quadratize_running(
+        prob_al, xs_aug[:, :-1], us0)
+    _qN, qxN, QN = problem_quadratize_final(prob_al, xs_aug[:, -1])
+    m32 = tuple(x.contiguous() for x in (As, Bs, qx, ru, Qxx, Pux, Ruu, qxN,
+                                         QN))
+    assert m32[0].shape == (B, T, n_aug, n_aug), m32[0].shape
+    rows = batch_first_rows(m32, n_aug, m, B, T, F32_REL_BOUND)
+    for row in rows.values():
+        assert row["copy_path"] == "per_element", row["copy_path"]
+    del m32, As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN
+    emit(phase="al_rbd", B=B, T=T, dtype="float32",
+         n_augmented=problem.state_dim + 1, m=problem.control_dim,
+         v_cap=v_max, max_outer=max_outer, max_outer_config=AL_RBD["max_outer"],
+         budget_s=AL_RBD_BUDGET_S, one_outer_s=one_s, solve_s=solve_s,
+         scan_solve_s=scan_s, batch_first_launches={name: launches},
+         lanes_by_status=by_status,
+         max_violation=float(res.max_violation.max()),
+         lam_max=float(res.lam.max()),
+         outer_iterations_max=int(res.outer_iterations.max()),
+         inner_iterations_mean=float(res.inner_iterations.float().mean()),
+         vs_scan=dict(status_equal=True, median_lane_rel=median,
+                      worst_lane_rel=float(lane_rel.max()),
+                      worst_cost_rel=float(cost_rel.max()),
+                      median_bound=F32_SOLVE_MEDIAN_BOUND_RBD,
+                      cost_bound=F32_SOLVE_COST_BOUND_RBD),
+         kernel_rows=rows)
+    return {name: launches}, rows
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(device):
+    """A world-size-1 NCCL process group (a ``TCPStore`` on 127.0.0.1, a
+    free port), destroyed at the end."""
+
+    import datetime
+
+    import torch.distributed as dist
+
+    from ilqr_tpu_torch.parallel.distributed import free_local_port
+    from ilqr_tpu_torch.parallel.mesh import backend_for
+
+    store = dist.TCPStore("127.0.0.1", free_local_port(), 1, True,
+                          timeout=datetime.timedelta(seconds=60))
+    backend = backend_for(device)
+    assert backend == "nccl", backend
+    dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(problem, cfg, device):
+    """``sharded_batch_solve`` on a world-size-1 NCCL group at the main
+    path's width (2-link, B=4096, T=100, float32, the kernel, phase
+    ``solve``'s config): ``torch.equal`` to ``make_batch_solver(engine=
+    "vmap")`` on the same inputs in ``us``, ``status`` and ``iterations``;
+    the reduced metrics equal to the sums of ``batch_metrics``
+    (``n_converged`` and the iteration count exactly, ``mean_cost`` to
+    rtol 1e-6: a sum over B divided by B against ``torch.mean``)."""
+
+    import torch.distributed as dist
+
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.batching import (batch_metrics,
+                                                  make_batch_solver)
+    from ilqr_tpu_torch.parallel.mesh import (make_scenario_mesh,
+                                              shard_scenarios,
+                                              sharded_batch_solve)
+
+    B, T = SHARDED["B"], SHARDED["T"]
+    x0s, us0 = scenario_inputs(B, T, torch.float32, 5, device)
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+    with nccl_world_of_one(device):
+        mesh = make_scenario_mesh()
+        assert mesh.size == 1 and mesh.device == device, mesh
+        backend = dist.get_backend(mesh.group)
+        # The group's first collective sets NCCL up: not in the timed solve.
+        dist.all_reduce(torch.zeros(1, device=device), group=mesh.group)
+        x_loc, u_loc = shard_scenarios(mesh, x0s, us0)
+        cuda_riccati.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, metrics = sharded_batch_solve(problem, mesh, x_loc, u_loc,
+                                           config=cfg)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = count_batch_first(name)
+        assert launches == int(res.iterations.max()) >= 1, launches
+        metrics = {k: v.item() for k, v in metrics.items()}
+    solve_fn = make_batch_solver(problem, cfg, engine="vmap", device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = solve_fn(x0s, us0)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    for f in ("us", "status", "iterations"):
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+    want = batch_metrics(ref)
+    assert metrics["n_converged"] == int(want["n_converged"])
+    assert metrics["total_iterations"] == int(ref.iterations.sum())
+    assert abs(metrics["mean_cost"] - float(want["mean_cost"])) <= (
+        1e-6 * abs(float(want["mean_cost"]))), (metrics, want)
+    emit(phase="sharded", B=B, T=T, dtype="float32", world_size=1,
+         backend=backend, axis=mesh.axis, solve_s=solve_s,
+         solves_per_s=B / solve_s, vmap_solve_s=ref_s,
+         vmap_solves_per_s=B / ref_s, metrics=metrics,
+         equal_to_vmap_solve=True, batch_first_launches={name: launches})
+    return {name: launches}
+
+
+def phase_entry(device):
+    """``entry()`` once on the card, then ``dryrun_multichip(1)``: one rank
+    on a NCCL group, the JAX dry run's two checks."""
+
+    from ilqr_tpu_torch import entry
+
+    fn, args = entry.entry(device=device)
+    t0 = time.perf_counter()
+    xs, us, cost = fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    assert xs.shape == (33, 4) and us.shape == (32, 2), (xs.shape, us.shape)
+    assert bool(torch.isfinite(cost)) and xs.device == device
+    t0 = time.perf_counter()
+    summaries = entry.dryrun_multichip(1, device=device)
+    dry_s = time.perf_counter() - t0
+    assert [s["backend"] for s in summaries] == ["nccl"], summaries
+    emit(phase="entry", entry_shapes=[list(xs.shape), list(us.shape)],
+         entry_cost=float(cost), entry_step_s=step_s,
+         dryrun_multichip_1=summaries, dryrun_s=dry_s)
+    emit(phase="pipeline", run=False, reason=PIPELINE_NOTE)
+
+
+def ptxas_summary(_build, libraries=None):
     """``{kernel: "registers, spill bytes, shared memory"}`` from the logs
     of the build (``nvcc -Xptxas -v``), template arguments as the name."""
 
     out = {}
-    for name in _build.SOURCES:
+    for name in libraries or _build.SOURCES:
+        if name.endswith("_clocks"):
+            continue
         fn = None
         for ln in _build.log_path(name).read_text().splitlines():
             if "Compiling entry function" in ln:
@@ -2176,6 +2624,15 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card only", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--hashes"]:
+        # python3 chip_smoke.py --hashes [ROOT]: the hashes of the fixed
+        # instantiations only, of the port in ROOT (an older tree unpacked
+        # beside this one) or of this one.
+        if len(sys.argv) > 2:
+            sys.path.insert(0, sys.argv[2])
+        print(json.dumps({"hashes": instantiation_hashes(
+            torch.device("cuda", torch.cuda.current_device()))}), flush=True)
+        return 0
     t_start = time.perf_counter()
 
     from ilqr_tpu_torch.config import ILQRConfig
@@ -2193,15 +2650,23 @@ def main():
          python=sys.version.split()[0],
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
+    from ilqr_tpu_torch.ops import cuda_riccati
+
     t0 = time.perf_counter()
-    # Every source and its stage-clock build, one nvcc each, all together.
-    _build.build(_build.SOURCES + tuple(_build.VARIANTS))
-    for name in _build.SOURCES:
+    # Every source and its stage-clock build, and the instantiations of
+    # NEW_SHAPES, one nvcc each, all together.
+    instances = [cuda_riccati.library_and_symbol(n, m, dtype)[0]
+                 for n, m in NEW_SHAPES
+                 for dtype in (torch.float32, torch.float64)]
+    libraries = list(_build.SOURCES) + list(_build.VARIANTS) + instances
+    _build.build(libraries)
+    for name in list(_build.SOURCES) + instances:
         _build.load(name)
+    built = dict(_build.build_seconds)
     emit(phase="build", seconds=time.perf_counter() - t0,
          sources=[f"ilqr_tpu_torch/ops/csrc/{n}.cu" for n in _build.SOURCES],
-         libraries=list(_build.SOURCES) + list(_build.VARIANTS),
-         ptxas=ptxas_summary(_build))
+         libraries=libraries, nvcc_seconds=built,
+         ptxas=ptxas_summary(_build, libraries))
 
     problem = make_two_link_problem()
     config = ILQRConfig(max_iter=30, tol=1e-5, tol_grad=1e-10,
@@ -2238,6 +2703,11 @@ def main():
     add(bf_launches, al_launches)
     bf_rows.update(al_rows)
     phase_trace_profile(problem, device)
+    shape_rows, shape_bf_rows = phase_shapes(device, built)
+    al_rbd_launches, al_rbd_rows = phase_al_rbd(cases, device)
+    add(bf_launches, al_rbd_launches)
+    add(bf_launches, phase_sharded(problem, solve_cfg, device))
+    phase_entry(device)
     marks = [("start", t_start)] + EMITTED
     emit(phase="total", seconds=time.perf_counter() - t_start,
          seconds_by_phase={p: t - t_prev for (_, t_prev), (p, t)
@@ -2252,7 +2722,12 @@ def main():
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    # The batch-first entry, at each instantiation its path launched.
+    # The batch-first entry, at each instantiation its path launched: the
+    # (17, 8) row from al_rbd's own local models.
+    bf_rows.update(shape_bf_rows)
+    bf_rows.update(al_rbd_rows)
+    sources.update({name: WIDE_SOURCE if row["source"] == "riccati_wide"
+                    else KERNEL_SOURCE for name, row in shape_rows.items()})
     for name, count in sorted(bf_launches.items()):
         row = bf_rows[name]
         assert count >= 1, (name, bf_launches)
@@ -2264,6 +2739,24 @@ def main():
             batch_last_ms=row["batch_last_ms"], layout_copies="none",
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    # The instantiations of NEW_SHAPES that no path of this run launched
+    # (all but (17, 8); (17, 8) batch-last, and batch-first in float64):
+    # rows of the shapes phase's checks, marked as such.
+    for entry, shape_rows_e, counts in (("", shape_rows, launches),
+                                        ("_batch_first", shape_bf_rows,
+                                         bf_launches)):
+        for name, row in sorted(shape_rows_e.items()):
+            if counts.get(name, 0) >= 1:
+                continue
+            kernels.append(dict(
+                name=f"{name}{entry}", route="cuda", source=sources[name],
+                replaces=(BATCH_FIRST_REPLACES if entry
+                          else KERNEL_REPLACES),
+                launches=0, check_only=True,
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                padded=row["padded"], plan_bytes=row["plan_bytes"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

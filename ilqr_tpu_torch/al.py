@@ -31,8 +31,11 @@ cost; here scenarios are leading batch axes and the callables are
 per-scenario, so the coordinate starts at ``lane * T`` instead of 0 and the
 cost reads row ``lane * T + k`` of the lanes' stacked multipliers (the
 coordinate's value enters no other arithmetic; it stays an exact integer
-while ``lanes * (T + 1)`` is below 2^24 in float32, and :func:`al_solve`
-raises ``ValueError`` where it is not).  The outer loop runs
+while ``lanes * (T + 1)`` is below 2^24 in float32).  A larger batch is
+solved in sub-batches of at most :func:`_exact_lanes` scenarios, each
+numbering its steps from 0, and concatenated: the scenarios are independent,
+so that is the same solve.  Only a single scenario whose ``T + 1`` is past
+the bound raises ``ValueError``.  The outer loop runs
 at most ``max_outer`` times on the leading-axis ``solve``; a lane that is
 done is frozen, and the loop ends once every lane is.
 """
@@ -79,6 +82,15 @@ class ALResult(NamedTuple):
     lam: torch.Tensor             # [*L, T, p] final running multipliers
     lam_T: torch.Tensor           # [*L, pT] final terminal multipliers
     mu: torch.Tensor              # [*L] final penalty weight
+
+
+def _exact_lanes(dtype: torch.dtype, T: int) -> int:
+    """The most scenarios whose step coordinate ``lane * T + k`` stays an
+    exact integer of ``dtype``: ``lanes * (T + 1)`` below ``2 / eps``
+    (2^24 in float32).  0 where not even one scenario's does."""
+
+    exact_below = round(2 / torch.finfo(dtype).eps)
+    return (exact_below - 1) // (T + 1)
 
 
 def _violation(c, is_eq):
@@ -178,15 +190,26 @@ def al_solve(problem: Problem, x0: torch.Tensor, u_init: torch.Tensor,
     T, m = u_init.shape[-2], u_init.shape[-1]
     n = x0.shape[-1]
     lanes = math.prod(lead)
-    exact_below = round(2 / torch.finfo(dtype).eps)   # 2^24 in float32
-    if lanes * (T + 1) >= exact_below:
-        # Past it the step coordinate rounds, and the cost would read a
-        # neighbouring step's or lane's multipliers.
+    per_batch = _exact_lanes(dtype, T)
+    if per_batch < 1:
+        # Past the bound the step coordinate rounds, and the cost would read
+        # a neighbouring step's multipliers.
         raise ValueError(
-            f"al_solve: {lanes} scenarios of T={T} steps number the step "
+            f"al_solve: one scenario of T={T} steps numbers the step "
             f"coordinate past the integers that {dtype} holds exactly "
-            f"(lanes * (T + 1) must be below {exact_below}); solve them in "
-            "smaller batches or in float64")
+            f"(T + 1 must be below {round(2 / torch.finfo(dtype).eps)}); "
+            "solve it in float64")
+    if lanes > per_batch:
+        # Sub-batches below the bound, each numbering its steps from 0.
+        x0_f = x0.reshape(lanes, n)
+        u_f = u_init.expand(lead + (T, m)).reshape(lanes, T, m)
+        parts = [al_solve(problem, x0_f[i:i + per_batch],
+                          u_f[i:i + per_batch], constraint, constraint_T,
+                          equality_mask, equality_mask_T, config, al_config,
+                          device)
+                 for i in range(0, lanes, per_batch)]
+        return ALResult(*(torch.cat(f, dim=0).reshape(lead + f[0].shape[1:])
+                          for f in zip(*parts)))
     kw = dict(dtype=dtype, device=device)
 
     # Constraint dimensions from one call on zero tensors.

@@ -8,11 +8,18 @@ that take raw device pointers and a stream), so it compiles in seconds with
          -shared -Xcompiler -fPIC -o build/ilqr_tpu_torch/lib<name>_<hash>.so \
          csrc/<name>.cu
 
-:func:`build` starts one ``nvcc`` per source, all together, and waits for
+:func:`build` starts one ``nvcc`` per library, all together, and waits for
 them.  Each source also has a stage-clock build, ``<name>_clocks``: the same
 file with ``-DRICCATI_STAGE_CLOCKS`` (``clock64()`` counters per stage of a
 step, see the sources), loaded only by ``cuda_riccati.riccati_stage_clocks``
 and never on the main path.
+
+A library named ``<source>_<n>x<m>_<f32|f64>`` (see :func:`instance`) is one
+instantiation of the kernel at any ``(n, m)``: the source compiled with
+``-DRICCATI_N=<n> -DRICCATI_M=<m> -DRICCATI_SCALAR=<float|double>``, which
+exports one generic launcher, ``riccati_cuda_instance``, in place of the
+source's fixed instantiations.  It is built at first use like the others,
+and has its stage-clock build too (``..._clocks``).
 
 The library's name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  The build directory
@@ -29,8 +36,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -42,13 +51,41 @@ VARIANTS = {f"{name}_clocks": (name, ("-DRICCATI_STAGE_CLOCKS",))
             for name in SOURCES}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# An instantiation library: <source>_<n>x<m>_<f32|f64>[_clocks].
+_INSTANCE = re.compile(r"^(%s)_(\d+)x(\d+)_(f32|f64)(_clocks)?$"
+                       % "|".join(SOURCES))
+_SCALARS = {"f32": "float", "f64": "double"}
+
+
+def instance(source: str, n: int, m: int, tag: str) -> str:
+    """The library name of ``source`` instantiated at ``(n, m)`` in
+    ``tag`` (``"f32"`` or ``"f64"``)."""
+
+    name = f"{source}_{n}x{m}_{tag}"
+    if not _INSTANCE.match(name):
+        raise ValueError(f"no instantiation {name!r} of csrc/{SOURCES}")
+    return name
 
 
 def _source_and_flags(name: str):
-    source, extra = VARIANTS.get(name, (name, ()))
+    if name in VARIANTS or name in SOURCES:
+        source, extra = VARIANTS.get(name, (name, ()))
+        return CSRC / f"{source}.cu", NVCC_FLAGS + extra
+    match = _INSTANCE.match(name)
+    if match is None:
+        raise ValueError(f"unknown library {name!r}: csrc/ has {SOURCES}, "
+                         "their stage-clock builds and their instantiations "
+                         "<source>_<n>x<m>_<f32|f64>")
+    source, n, m, tag, clocks = match.groups()
+    extra = (f"-DRICCATI_N={n}", f"-DRICCATI_M={m}",
+             f"-DRICCATI_SCALAR={_SCALARS[tag]}")
+    if clocks:
+        extra += ("-DRICCATI_STAGE_CLOCKS",)
     return CSRC / f"{source}.cu", NVCC_FLAGS + extra
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Seconds of the nvcc run that built each library in this process.
+build_seconds: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -101,14 +138,15 @@ def _start_build(name: str):
     cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish_build(name: str, started) -> None:
     if started is None:
         return
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     output, _ = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
     if proc.returncode != 0 or not tmp.exists():
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
@@ -118,8 +156,8 @@ def _finish_build(name: str, started) -> None:
 
 
 def build(names: Iterable[str] = SOURCES) -> None:
-    """Build every named source that is not built yet, one ``nvcc`` per
-    source, all started together."""
+    """Build every named library that is not built yet, one ``nvcc`` per
+    library, all started together."""
 
     started = [(n, _start_build(n)) for n in names if n not in _loaded]
     for n, s in started:
@@ -127,8 +165,8 @@ def build(names: Iterable[str] = SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (a source of ``csrc/`` or one of
-    :data:`VARIANTS`), built first if needed."""
+    """The loaded library ``name`` (a source of ``csrc/``, one of
+    :data:`VARIANTS` or an :func:`instance`), built first if needed."""
 
     lib = _loaded.get(name)
     if lib is None:

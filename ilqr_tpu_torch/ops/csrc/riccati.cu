@@ -58,6 +58,11 @@
 //    the augmented Lagrangian's step-index coordinate (al.py).  A lane's
 //    batch-first blocks at (5, 2) are not whole 16-byte chunks (25 values
 //    of A), so there the ring takes one value a copy and a read (Row::VEC).
+//    Any other (n, m) with n, m <= 5 is built at first use with
+//    -DRICCATI_N/-DRICCATI_M/-DRICCATI_SCALAR behind the generic launcher
+//    riccati_cuda_instance (ops/_build.py); larger shapes go to
+//    riccati_wide.cu, since a lane's registers are nearly spent at (5, 2)
+//    (127 of 128 in float32, 252 of 254 in float64: PERF.md).
 //
 // Built with -DRICCATI_STAGE_CLOCKS (a second library, never on the main
 // path) every lane adds the clock64() cycles of each stage of a step into a
@@ -98,8 +103,15 @@ template <typename T, int N, int M> struct Row {
       whole_chunks<T>(N * N) && whole_chunks<T>(N * M) && whole_chunks<T>(N) &&
       whole_chunks<T>(M * M) && (whole_chunks<T>(M) || M * sizeof(T) == 8);
   // An odd number of 16-byte units (VEC) or of values, so that a quarter
-  // warp's reads of a step fall on distinct banks.
-  static constexpr int LEN = VEC ? (sizeof(T) == 4 ? 60 : 62) : (USED | 1);
+  // warp's reads of a step fall on distinct banks: 15 units in float32, 31
+  // in float64, or the least odd count that holds a larger step.
+  static constexpr int PER = 16 / (int)sizeof(T);
+  static constexpr int UNITS = (USED + PER - 1) / PER;
+  static constexpr int ODD = UNITS | 1;
+  static constexpr int LEN = VEC ? (USED <= (sizeof(T) == 4 ? 60 : 62)
+                                        ? (sizeof(T) == 4 ? 60 : 62)
+                                        : ODD * PER)
+                                 : (USED | 1);
   static constexpr int SLOT = LEN * kThreads;
   static constexpr int BYTES = RING * SLOT * (int)sizeof(T);
   static_assert(USED <= LEN, "a step does not fit a row");
@@ -561,7 +573,12 @@ int launch(const void* const* in, const void* qxN, const void* QN,
                                 symmetrize, layout, path, clocks, stream);       \
   }
 
+#if defined(RICCATI_N) && defined(RICCATI_M) && defined(RICCATI_SCALAR)
+// One instantiation built at first use (ops/_build.py).
+RICCATI_EXPORT(riccati_cuda_instance, RICCATI_SCALAR, RICCATI_N, RICCATI_M)
+#else
 RICCATI_EXPORT(riccati_cuda_4x2_f32, float, 4, 2)
 RICCATI_EXPORT(riccati_cuda_4x2_f64, double, 4, 2)
 RICCATI_EXPORT(riccati_cuda_5x2_f32, float, 5, 2)
 RICCATI_EXPORT(riccati_cuda_5x2_f64, double, 5, 2)
+#endif

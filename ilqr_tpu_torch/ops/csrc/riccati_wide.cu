@@ -1,8 +1,9 @@
 // Fused backward Riccati recursion for the larger models, (N, M) = (16, 8)
-// and (24, 12): one launch for a whole scenario batch and horizon, a lane
-// spread over the four warps of TPL = 128 threads, two lanes a block, the
-// inputs brought in by the Tensor Memory Accelerator (TMA) through a ring of
-// steps in shared memory.
+// and (24, 12) and, built at first use with -DRICCATI_N/-DRICCATI_M, any
+// (n, m) whose padded plan fits a block (below): one launch for a whole
+// scenario batch and horizon, a lane spread over the four warps of TPL = 128
+// threads, two lanes a block, the inputs brought in by the Tensor Memory
+// Accelerator (TMA) through a ring of steps in shared memory.
 //
 // Replaces the same TPU kernel as riccati.cu does at (4, 2):
 // ilqr_tpu/ops/pallas_riccati.py::_riccati_kernel (launched by
@@ -75,6 +76,21 @@
 //    one 8 x 8 output tile a warp, exact IEEE products.  float32 stays on
 //    FFMA: no TF32 anywhere (reduced-precision products NaN the recursion at
 //    T >= 300, ilqr_tpu/precision.py).
+//
+// Any (n, m): padding.  The tiles need N % 8 == 0 and M % 4 == 0, so a
+// logical (NL, ML) runs as (N, M) = (ceil(NL/8)*8, ceil(ML/4)*4).  The padded
+// rows and columns of A, B, qx, ru, Qxx, Pux, Ruu, QN and qxN are zero in
+// shared memory (the per-element copies write only logical entries into a
+// ring that starts zeroed; a TMA box over the logical dimensions fills what
+// lies past them with zeros), and the padded diagonal of H + reg I is set to
+// 1 in the Cholesky (not 0 + reg: reg may be 0, and rsqrt(0) = inf makes
+// 0 * inf a NaN).  Then every padded entry of duff, K, W, S and s is an exact
+// zero, every logical entry gets exactly the sums of the unpadded recursion
+// plus exact zeros, and only the logical entries of duff and K are written.
+// The limits are those of the plan: N + 1 <= 32 (one warp solves the N + 1
+// columns) and Plan::BYTES <= 232,448, so N <= 24 (the padded (24, 12) in
+// float64 takes 215,880 bytes; N = 32 breaks both); cuda_riccati.route
+// refuses a shape past the padded (24, 12) before any nvcc run.
 //
 // Built with -DRICCATI_STAGE_CLOCKS (a second library, never on the main
 // path) thread 0 of every lane adds the clock64() cycles of each stage of a
@@ -228,8 +244,9 @@ __device__ __forceinline__ void st4(T* p, const T (&x)[4]) {
   }
 }
 
-// Element offsets of the block's shared memory, in units of T.
-template <typename T, int N, int M> struct Plan {
+// Element offsets of the block's shared memory, in units of T, for the
+// padded (N, M); the inputs in global memory have the logical (NL, ML).
+template <typename T, int N, int M, int NL = N, int ML = M> struct Plan {
   static constexpr int LPB = 2;                     // lanes a block
   static constexpr int BOX = 16 / (int)sizeof(T);   // lanes of a batch-last box
   static constexpr int NTHREADS = LPB * TPL;
@@ -241,6 +258,15 @@ template <typename T, int N, int M> struct Plan {
     return k == 1 || k == 3 || k == 6 ? M : N;
   }
   __host__ __device__ static constexpr int E(int k) { return d1(k) * d2(k); }
+  // The same of the logical input in global memory.
+  __host__ __device__ static constexpr int ld1(int k) {
+    return k == 0 || k == 1 || k == 4 ? NL : k == 5 || k == 6 ? ML : 1;
+  }
+  __host__ __device__ static constexpr int ld2(int k) {
+    return k == 1 || k == 3 || k == 6 ? ML : NL;
+  }
+  __host__ __device__ static constexpr int LE(int k) { return ld1(k) * ld2(k); }
+  static constexpr bool PADDED = NL != N || ML != M;
   // A step's inputs, densely: A, B, qx, ru, Qxx, Pux, Ruu.
   __host__ __device__ static constexpr int dense(int k) {
     return k == 0 ? 0 : dense(k - 1) + E(k - 1);
@@ -284,6 +310,7 @@ template <typename T, int N, int M> struct Plan {
   // Threads that repack a step (warps 1..): the arrivals that free a slot.
   static constexpr int PACKERS = TPL - 32;
   static_assert(IN % 4 == 0 && N % 4 == 0 && M % 4 == 0, "rows on 16 bytes");
+  static_assert(0 < NL && NL <= N && 0 < ML && ML <= M, "logical within padded");
   static_assert(SLOT % ALIGN == 0 && LANE % 4 == 0, "aligned regions");
 };
 
@@ -382,11 +409,11 @@ __host__ __device__ constexpr int tile_rows(int rows, int cols, int warps) {
   return rows * (cols / 4) <= 32 * warps ? 1 : 2;
 }
 
-template <typename T, int N, int M, int LAYOUT>
-__global__ void __launch_bounds__(Plan<T, N, M>::NTHREADS, 1)
+template <typename T, int N, int M, int NL, int ML, int LAYOUT>
+__global__ void __launch_bounds__(Plan<T, N, M, NL, ML>::NTHREADS, 1)
 riccati_wide_kernel(const __grid_constant__ Maps maps, const Args<T> args,
                     int T_steps, long long B, int symmetrize, int tma) {
-  using P = Plan<T, N, M>;
+  using P = Plan<T, N, M, NL, ML>;
   constexpr int LPB = P::LPB;
   constexpr int BOX = LAYOUT == BATCH_LAST ? P::BOX : LPB;
   constexpr int NA = P::NA;
@@ -445,13 +472,16 @@ riccati_wide_kernel(const __grid_constant__ Maps maps, const Args<T> args,
     if (valid) {
 #pragma unroll
       for (int k = 0; k < NIN; ++k) {
-        const int E = P::E(k);
+        // e counts the logical elements; ep is e's place in the padded
+        // matrix (the padded places are never written: zero).
+        const int E = P::LE(k);
         const T* src = args.in[k];
         for (int e = lt; e < E; e += TPL) {
           const long long at = LAYOUT == BATCH_LAST
                                    ? ((long long)t * E + e) * B + b
                                    : ((long long)b * T_steps + t) * E + e;
-          const int to = LAYOUT == BATCH_LAST ? e * BOX + in_box : in_box * E + e;
+          const int ep = P::PADDED ? e / P::ld2(k) * P::d2(k) + e % P::ld2(k) : e;
+          const int to = LAYOUT == BATCH_LAST ? ep * BOX + in_box : in_box * P::E(k) + ep;
           copy_elem(slot + P::in_off(k) + to, src + at);
         }
       }
@@ -486,15 +516,15 @@ riccati_wide_kernel(const __grid_constant__ Maps maps, const Args<T> args,
 
   // The carry, seeded from the terminal cost, and its transpose.
   if (valid) {
-    for (int i = lt; i < N * N; i += TPL) {
+    for (int i = lt; i < NL * NL; i += TPL) {
       const T v = LAYOUT == BATCH_LAST ? args.QN[(long long)i * B + b]
-                                       : args.QN[b * N * N + i];
-      my[P::S + i] = v;
-      my[P::St + (i % N) * N + i / N] = v;
+                                       : args.QN[b * NL * NL + i];
+      my[P::S + (i / NL) * N + i % NL] = v;
+      my[P::St + (i % NL) * N + i / NL] = v;
     }
-    for (int i = lt; i < N; i += TPL)
+    for (int i = lt; i < NL; i += TPL)
       my[P::s + i] = LAYOUT == BATCH_LAST ? args.qxN[(long long)i * B + b]
-                                          : args.qxN[b * N + i];
+                                          : args.qxN[b * NL + i];
   }
   const T reg_b = valid ? args.reg[b] : T(1);
   const T half = T(0.5);
@@ -597,7 +627,8 @@ riccati_wide_kernel(const __grid_constant__ Maps maps, const Args<T> args,
       for (int i = 0; i < M; ++i) {
 #pragma unroll
         for (int k = 0; k <= i; ++k) a[i][k] = my[P::H + i * M + k];
-        a[i][i] += reg_b;
+        // A padded pivot is 1 (see the top of the file).
+        a[i][i] = i < ML ? a[i][i] + reg_b : T(1);
       }
 #pragma unroll
       for (int j = 0; j < M; ++j) {
@@ -639,16 +670,18 @@ riccati_wide_kernel(const __grid_constant__ Maps maps, const Args<T> args,
         for (int i = 0; i < M; ++i) {
           const T v = -x[i];
           my[P::KA + i * NA + wl] = v;
-          if (!valid) continue;
+          // Only the logical entries of K and duff are written.
+          if (!valid || i >= ML) continue;
           if (wl < N) {
+            if (wl >= NL) continue;
             if (LAYOUT == BATCH_LAST)
-              args.Ks[(((long long)t * M + i) * N + wl) * B + b] = v;
+              args.Ks[(((long long)t * ML + i) * NL + wl) * B + b] = v;
             else
-              args.Ks[(((long long)b * T_steps + t) * M + i) * N + wl] = v;
+              args.Ks[(((long long)b * T_steps + t) * ML + i) * NL + wl] = v;
           } else if (LAYOUT == BATCH_LAST) {
-            args.duffs[((long long)t * M + i) * B + b] = v;
+            args.duffs[((long long)t * ML + i) * B + b] = v;
           } else {
-            args.duffs[((long long)b * T_steps + t) * M + i] = v;
+            args.duffs[((long long)b * T_steps + t) * ML + i] = v;
           }
         }
       }
@@ -808,27 +841,30 @@ EncodeTiled encode_tiled() {
 }
 
 // The tensor map of input k: a box of one step of BOX lanes (batch-last) or
-// of the block's LPB lanes (batch-first).
-template <typename T, int N, int M>
+// of the block's LPB lanes (batch-first), over the logical dimensions of the
+// input with the padded matrix as the box: TMA fills the padded places,
+// which lie past the logical dimensions, with zeros.
+template <typename T, int N, int M, int NL, int ML>
 bool encode(CUtensorMap* map, int k, const void* base, int T_steps, long long B,
             int layout) {
-  using P = Plan<T, N, M>;
+  using P = Plan<T, N, M, NL, ML>;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t s = sizeof(T), d1 = P::d1(k), d2 = P::d2(k);
+  const cuuint64_t s = sizeof(T), d1 = P::ld1(k), d2 = P::ld2(k);
+  const cuuint32_t p1 = P::d1(k), p2 = P::d2(k);
   const cuuint64_t Bu = (cuuint64_t)B, Tu = (cuuint64_t)T_steps;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], estr[4] = {1, 1, 1, 1};
   if (layout == BATCH_LAST) {
     const cuuint64_t d[4] = {Bu, d2, d1, Tu};
     const cuuint64_t st[3] = {Bu * s, d2 * Bu * s, d1 * d2 * Bu * s};
-    const cuuint32_t bx[4] = {(cuuint32_t)P::BOX, (cuuint32_t)d2, (cuuint32_t)d1, 1};
+    const cuuint32_t bx[4] = {(cuuint32_t)P::BOX, p2, p1, 1};
     for (int i = 0; i < 4; ++i) { dims[i] = d[i]; box[i] = bx[i]; }
     for (int i = 0; i < 3; ++i) strides[i] = st[i];
   } else {
     const cuuint64_t d[4] = {d2, d1, Tu, Bu};
     const cuuint64_t st[3] = {d2 * s, d1 * d2 * s, Tu * d1 * d2 * s};
-    const cuuint32_t bx[4] = {(cuuint32_t)d2, (cuuint32_t)d1, 1, (cuuint32_t)P::LPB};
+    const cuuint32_t bx[4] = {p2, p1, 1, (cuuint32_t)P::LPB};
     for (int i = 0; i < 4; ++i) { dims[i] = d[i]; box[i] = bx[i]; }
     for (int i = 0; i < 3; ++i) strides[i] = st[i];
   }
@@ -840,11 +876,11 @@ bool encode(CUtensorMap* map, int k, const void* base, int T_steps, long long B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int N, int M>
+template <typename T, int N, int M, int NL = N, int ML = M>
 int launch(const void* const* in, const void* qxN, const void* QN, const void* reg,
            void* duffs, void* Ks, void* dv1, void* dv2, int T_steps, long long B,
            int symmetrize, int layout, int* path, void* clocks, void* stream) {
-  using P = Plan<T, N, M>;
+  using P = Plan<T, N, M, NL, ML>;
 #ifndef RICCATI_STAGE_CLOCKS
   if (clocks != nullptr) return (int)cudaErrorInvalidValue;
 #endif
@@ -854,18 +890,21 @@ int launch(const void* const* in, const void* qxN, const void* QN, const void* r
     return (int)cudaErrorInvalidValue;
   // The copy path.  TMA takes an input when its base is on 16 bytes, its
   // strides are multiples of 16 bytes and the batch holds at least one box
-  // of lanes.  A batch-first stride is a row of N or M values, on 16 bytes
-  // by Plan's static_assert; a batch-last one is a row of B lanes.
+  // of lanes.  A batch-first stride is a row of NL or ML values (on 16 bytes
+  // where they are whole chunks, as at (16, 8) and (24, 12), not at a logical
+  // shape that is padded); a batch-last one is a row of B lanes.
   int tma = T_steps > 0 && B >= (layout == BATCH_LAST ? P::BOX : P::LPB);
   if (layout == BATCH_LAST && (B * (long long)sizeof(T)) % 16) tma = 0;
-  for (int k = 0; k < NIN; ++k)
+  for (int k = 0; k < NIN; ++k) {
     if (reinterpret_cast<uintptr_t>(in[k]) % 16) tma = 0;
+    if (layout == BATCH_FIRST && (P::ld2(k) * sizeof(T)) % 16) tma = 0;
+  }
   if (path != nullptr) *path = tma;
   Maps maps = {};
   Args<T> args;
   for (int k = 0; k < NIN; ++k) {
     args.in[k] = static_cast<const T*>(in[k]);
-    if (tma && !encode<T, N, M>(&maps.m[k], k, in[k], T_steps, B, layout))
+    if (tma && !encode<T, N, M, NL, ML>(&maps.m[k], k, in[k], T_steps, B, layout))
       return (int)cudaErrorInvalidValue;
   }
   args.qxN = static_cast<const T*>(qxN);
@@ -876,8 +915,8 @@ int launch(const void* const* in, const void* qxN, const void* QN, const void* r
   args.dv1 = static_cast<T*>(dv1);
   args.dv2 = static_cast<T*>(dv2);
   args.clocks = static_cast<long long*>(clocks);
-  auto kernel = layout == BATCH_LAST ? riccati_wide_kernel<T, N, M, BATCH_LAST>
-                                     : riccati_wide_kernel<T, N, M, BATCH_FIRST>;
+  auto kernel = layout == BATCH_LAST ? riccati_wide_kernel<T, N, M, NL, ML, BATCH_LAST>
+                                     : riccati_wide_kernel<T, N, M, NL, ML, BATCH_FIRST>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -895,16 +934,30 @@ int launch(const void* const* in, const void* qxN, const void* QN, const void* r
 // where to write the copy path taken (1: TMA, 0: per element; may be null), a
 // [B, kStages] int64 buffer of stage clocks (null unless built with
 // -DRICCATI_STAGE_CLOCKS) and the CUDA stream; returns a cudaError_t.
-#define RICCATI_WIDE_EXPORT(NAME, SCALAR, N, M)                                  \
+#define RICCATI_WIDE_EXPORT(NAME, SCALAR, N, M, NL, ML)                          \
   extern "C" int NAME(const void* const* in, const void* qxN, const void* QN,    \
                       const void* reg, void* duffs, void* Ks, void* dv1,         \
                       void* dv2, int T, long long B, int symmetrize, int layout, \
                       int* path, void* clocks, void* stream) {                   \
-    return launch<SCALAR, N, M>(in, qxN, QN, reg, duffs, Ks, dv1, dv2, T, B,     \
-                                symmetrize, layout, path, clocks, stream);       \
+    return launch<SCALAR, N, M, NL, ML>(in, qxN, QN, reg, duffs, Ks, dv1, dv2,   \
+                                        T, B, symmetrize, layout, path, clocks,  \
+                                        stream);                                 \
   }
 
-RICCATI_WIDE_EXPORT(riccati_cuda_16x8_f32, float, 16, 8)
-RICCATI_WIDE_EXPORT(riccati_cuda_16x8_f64, double, 16, 8)
-RICCATI_WIDE_EXPORT(riccati_cuda_24x12_f32, float, 24, 12)
-RICCATI_WIDE_EXPORT(riccati_cuda_24x12_f64, double, 24, 12)
+#if defined(RICCATI_N) && defined(RICCATI_M) && defined(RICCATI_SCALAR)
+// One instantiation built at first use (ops/_build.py): the logical
+// (RICCATI_N, RICCATI_M) in RICCATI_SCALAR, padded to whole tiles, behind the
+// generic launcher riccati_cuda_instance.
+constexpr int kPaddedN = (RICCATI_N + 7) / 8 * 8, kPaddedM = (RICCATI_M + 3) / 4 * 4;
+RICCATI_WIDE_EXPORT(riccati_cuda_instance, RICCATI_SCALAR, kPaddedN, kPaddedM, RICCATI_N,
+                    RICCATI_M)
+// The shared memory a block of the instantiation takes (its Plan::BYTES).
+extern "C" int riccati_cuda_instance_shared_bytes() {
+  return riccati_wide::Plan<RICCATI_SCALAR, kPaddedN, kPaddedM, RICCATI_N, RICCATI_M>::BYTES;
+}
+#else
+RICCATI_WIDE_EXPORT(riccati_cuda_16x8_f32, float, 16, 8, 16, 8)
+RICCATI_WIDE_EXPORT(riccati_cuda_16x8_f64, double, 16, 8, 16, 8)
+RICCATI_WIDE_EXPORT(riccati_cuda_24x12_f32, float, 24, 12, 24, 12)
+RICCATI_WIDE_EXPORT(riccati_cuda_24x12_f64, double, 24, 12, 24, 12)
+#endif

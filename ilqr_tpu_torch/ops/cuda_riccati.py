@@ -14,6 +14,14 @@ at first use by :mod:`ilqr_tpu_torch.ops._build` and called through ctypes.
 It has no gradient (the JAX kernel has none either), so there is no
 ``torch.autograd.Function`` around it.
 
+Any other ``(n, m)``, as the Pallas kernel is specialized for whatever
+shape reaches it, is an instantiation built at first use
+(:func:`kernel_name`, :func:`route`): ``riccati.cu`` where ``n, m <= 5``
+(one thread a lane, whose registers are nearly spent at ``(5, 2)``),
+``riccati_wide.cu`` padded to ``(ceil(n/8)*8, ceil(m/4)*4)`` otherwise, up
+to the padded ``(24, 12)`` (:data:`WIDE_MAX`, the largest shape known to
+build).  A larger shape raises before any ``nvcc`` run.
+
 * :func:`riccati_scan_cuda_bl` — the wrapper.  On CUDA tensors it launches
   the kernel or raises; on CPU tensors it takes the plain version.  It
   never falls back from one to the other.
@@ -58,7 +66,7 @@ import torch
 
 from ilqr_tpu_torch.ops import smallmat as sm
 
-# (n, m, dtype) -> exported launcher.
+# (n, m, dtype) -> exported launcher of the sources' fixed instantiations.
 KERNELS: Dict[Tuple[int, int, torch.dtype], str] = {
     (4, 2, torch.float32): "riccati_cuda_4x2_f32",
     (4, 2, torch.float64): "riccati_cuda_4x2_f64",
@@ -76,10 +84,20 @@ LIBRARY: Dict[str, str] = {
     name: "riccati" if key[:2] in ((4, 2), (5, 2)) else "riccati_wide"
     for key, name in KERNELS.items()
 }
+# The exported launcher of an instantiation library.
+INSTANCE_SYMBOL = "riccati_cuda_instance"
+_TAGS = {torch.float32: "f32", torch.float64: "f64"}
+
+# riccati.cu takes a shape whose n and m are at most this.
+ONE_THREAD_MAX = 5
+# The largest padded (N, M) riccati_wide.cu serves: the largest shape known
+# to build (its plan's static_asserts own the exact limit).
+WIDE_MAX = (24, 12)
 
 # Launches per kernel name: one is added where a wrapper launches the
 # kernel, and nowhere else — by the batch-last entry to ``launch_counts``,
-# by the batch-first entry to ``batched_launch_counts``.
+# by the batch-first entry to ``batched_launch_counts`` (a name built at
+# first use enters both at its first launch).
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS.values()}
 batched_launch_counts: Dict[str, int] = {name: 0 for name in KERNELS.values()}
 
@@ -108,19 +126,54 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
-    """The launcher for ``(n, m, dtype)``; raises for a missing
-    instantiation."""
+def route(n: int, m: int) -> Tuple[str, int, int]:
+    """``(source, N, M)``: the source that runs ``(n, m)`` and the shape it
+    runs it at (padded in ``riccati_wide.cu``).  Raises
+    ``NotImplementedError`` for a shape no source serves, before any
+    ``nvcc`` run."""
 
-    try:
-        return KERNELS[(n, m, dtype)]
-    except KeyError:
-        have = sorted({(k[0], k[1]) for k in KERNELS})
+    if n < 1 or m < 1:
+        raise ValueError(f"(n, m) = ({n}, {m}) is not a shape")
+    if n <= ONE_THREAD_MAX and m <= ONE_THREAD_MAX:
+        return "riccati", n, m
+    N, M = -(-n // 8) * 8, -(-m // 4) * 4
+    if N > WIDE_MAX[0] or M > WIDE_MAX[1]:
         raise NotImplementedError(
-            f"the fused Riccati kernel is not instantiated for (n, m) = "
-            f"({n}, {m}) in {dtype}: csrc/ holds {have} in float32 and "
-            "float64; use backward_backend='scan' or add the "
-            "instantiation") from None
+            f"the fused Riccati kernel serves n <= {WIDE_MAX[0]} and m <= "
+            f"{WIDE_MAX[1]}: (n, m) = ({n}, {m}) pads to ({N}, {M}) in "
+            f"riccati_wide.cu, past the largest shape served, padded "
+            f"{WIDE_MAX}; use backward_backend='scan'")
+    return "riccati_wide", N, M
+
+
+def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
+    """The launcher for ``(n, m, dtype)``: a fixed instantiation of
+    :data:`KERNELS` or ``riccati_cuda_<n>x<m>_<f32|f64>``, an instantiation
+    built at first use.  Raises for a type other than float32 and float64
+    and (:func:`route`) for a shape no source serves."""
+
+    if dtype not in _TAGS:
+        raise NotImplementedError(
+            f"the fused Riccati kernel takes float32 and float64, not {dtype}")
+    fixed = KERNELS.get((n, m, dtype))
+    if fixed is not None:
+        return fixed
+    route(n, m)
+    return f"riccati_cuda_{n}x{m}_{_TAGS[dtype]}"
+
+
+def library_and_symbol(n: int, m: int, dtype: torch.dtype) -> Tuple[str, str]:
+    """``(library, exported launcher)`` of the kernel for ``(n, m, dtype)``:
+    a source and a fixed launcher of :data:`KERNELS`, or an instantiation
+    library and its generic launcher."""
+
+    name = kernel_name(n, m, dtype)
+    if name in LIBRARY:
+        return LIBRARY[name], name
+    from ilqr_tpu_torch.ops import _build
+
+    return (_build.instance(route(n, m)[0], n, m, _TAGS[dtype]),
+            INSTANCE_SYMBOL)
 
 
 def _library(library: str):
@@ -134,8 +187,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong]
              + [ctypes.c_void_p] * 2)
 
 
-def _launcher(name: str, library: str):
-    fn = getattr(_library(library), name)
+def _launcher(symbol: str, library: str):
+    fn = getattr(_library(library), symbol)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -198,8 +251,9 @@ def _launch(arrays, reg, symmetrize, layout, clocks=None):
     dv1, dv2 = torch.empty((B,), **kw), torch.empty((B,), **kw)
 
     path = ctypes.c_int(-1)
-    library = LIBRARY[name] + ("_clocks" if clocks is not None else "")
-    fn = _launcher(name, library)
+    library, symbol = library_and_symbol(n, m, As.dtype)
+    library += "_clocks" if clocks is not None else ""
+    fn = _launcher(symbol, library)
     ptrs = (ctypes.c_void_p * 7)(*(x.data_ptr() for x in arrays[:7]))
     with torch.cuda.device(As.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -234,7 +288,7 @@ def riccati_scan_cuda_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
         # Any (n, m): the plain version is not instantiated.
         return riccati_scan_plain_bl(*arrays, reg, symmetrize=symmetrize)
     name, outs = _launch(arrays, reg, symmetrize, BATCH_LAST)
-    launch_counts[name] += 1
+    launch_counts[name] = launch_counts.get(name, 0) + 1
     return outs
 
 
@@ -290,7 +344,7 @@ def riccati_scan_cuda_batched(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
         return riccati_scan_plain_batched(*arrays, reg, symmetrize=symmetrize)
     arrays = tuple(as_kernel_input(x) for x in arrays)
     name, outs = _launch(arrays, reg, symmetrize, BATCH_FIRST)
-    batched_launch_counts[name] += 1
+    batched_launch_counts[name] = batched_launch_counts.get(name, 0) + 1
     return outs
 
 
@@ -310,7 +364,7 @@ def riccati_stage_clocks(arrays, reg, layout=BATCH_LAST):
 
     T, n, m, B = _shapes(*arrays, layout)
     name = kernel_name(n, m, arrays[0].dtype)
-    stages = STAGES[LIBRARY[name]]
+    stages = STAGES[route(n, m)[0]]
     clocks = torch.zeros((B, len(stages)), dtype=torch.int64,
                          device=arrays[0].device)
     _launch(arrays, reg, True, layout, clocks=clocks)

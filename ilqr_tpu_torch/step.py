@@ -257,7 +257,23 @@ def make_scalar_engine(problem, x_ref, config: ILQRConfig) -> StepEngine:
     """The per-scenario engine.  Every lane-shaped value has the leading
     batch shape ``[*L]`` (``()`` for one scenario) and trajectories are
     ``[*L, T+1, n]`` / ``[*L, T, m]``: the port's written-out ``jax.vmap``
-    of the JAX engine."""
+    of the JAX engine.
+
+    Raises ``NotImplementedError`` on ``parallel_alpha_block > 0``: the
+    parallel-alpha ladder exists only in the fused engine, and the JAX
+    per-scenario engine ignores the flag silently, so a run that sets it
+    would measure the sequential ladder (``ROADMAP.md`` C17; refused as the
+    fused engine refuses what it ignores, C1).  ``derivative_chunk`` is
+    ignored here, as in the JAX package: it bounds the memory of the fused
+    engine's derivatives and changes no result.
+    """
+
+    if config.parallel_alpha_block > 0:
+        raise NotImplementedError(
+            "parallel_alpha_block > 0 is not implemented by the per-scenario "
+            "engine of ilqr_tpu_torch (solver.solve, "
+            "make_batch_solver(engine='vmap'), MPC, al_solve); the fused "
+            "engine (make_batch_solver(engine='fused')) has it")
 
     from ilqr_tpu_torch.backward import backward_pass
     from ilqr_tpu_torch.forward import forward_pass

@@ -17,8 +17,11 @@ loop converges in eight iterations with the cap active:
   against each scenario solved alone through per-scenario callables;
 * the augmented problem's cost and its derivatives against the JAX one at a
   state with active and inactive rows;
-* float32 in, float32 out, and a float32 batch too large for the step
-  coordinate to stay an exact integer refused.
+* float32 in, float32 out; a float32 batch too large for the step
+  coordinate to stay an exact integer solved in sub-batches, and one
+  scenario too long for it refused;
+* a batch split into sub-batches (the limit lowered) equal to the same
+  batch unsplit.
 """
 
 import dataclasses
@@ -235,24 +238,66 @@ def test_float32_in_float32_out():
         assert getattr(res, name).dtype == torch.int32, name
 
 
-def test_float32_step_coordinate_must_stay_exact():
+def test_float32_step_coordinate_must_stay_exact(monkeypatch):
     """2^24 / (T + 1) scenarios number the coordinate up to 2^24 - T - 1, the
-    last float32 batch that holds it exactly; one more is refused before
-    any solve."""
+    last float32 batch that holds it exactly; one more is solved in two
+    sub-batches, each numbering its steps from 0.  A single scenario whose
+    T + 1 reaches 2^24 is refused before any solve."""
 
     problem = make_two_link_problem()
     lanes = 2 ** 24 // (T + 1)
+    assert al._exact_lanes(torch.float32, T) == lanes
     us = torch.zeros((T, 2), dtype=torch.float32)
-    for extra, raises in ((0, False), (1, True)):
-        x0 = torch.zeros((lanes + extra, 4), dtype=torch.float32)
-        if raises:
-            with pytest.raises(ValueError, match="exactly"):
-                al.al_solve(problem, x0, us, port_c, port_cT,
-                            device="cpu")
-            continue
-        # The largest batch that holds it passes the check and reaches the
-        # constraint dimensions (the solve itself is not run here).
-        def stop(x, u):
-            raise StopIteration
-        with pytest.raises(StopIteration):
-            al.al_solve(problem, x0, us, stop, port_cT, device="cpu")
+
+    def stop(x, u):
+        raise StopIteration
+
+    # The largest batch that holds it is not split: it passes the check and
+    # reaches the constraint dimensions (the solve itself is not run here).
+    x0 = torch.zeros((lanes, 4), dtype=torch.float32)
+    with pytest.raises(StopIteration):
+        al.al_solve(problem, x0, us, stop, port_cT, device="cpu")
+    # One more is handed on as two sub-batches.
+    original, sizes = al.al_solve, []
+
+    def sub_batch(problem, x0, *args):
+        sizes.append(x0.shape[0])
+        raise StopIteration
+
+    monkeypatch.setattr(al, "al_solve", sub_batch)
+    x0 = torch.zeros((lanes + 1, 4), dtype=torch.float32)
+    with pytest.raises(StopIteration):
+        original(problem, x0, us, port_c, port_cT, device="cpu")
+    assert sizes == [lanes]
+    monkeypatch.setattr(al, "al_solve", original)
+    long_T = 2 ** 24 - 1
+    u_long = torch.zeros((1, 2), dtype=torch.float32).expand(long_T, 2)
+    with pytest.raises(ValueError, match="exactly"):
+        al.al_solve(problem, torch.zeros(4), u_long, port_c, port_cT,
+                    device="cpu")
+
+
+def test_split_batch_equals_unsplit(monkeypatch):
+    """Five scenarios solved in sub-batches of two (the limit lowered) and
+    in one batch: the same result, lane for lane."""
+
+    rng = np.random.default_rng(5)
+    x0s = X0 + 0.05 * rng.standard_normal((5, 4))
+    whole = port_run(x0=x0s, max_outer=3)
+    seen = []
+    original = al._augment_problem
+
+    def recording(problem, c, cT, lam_rows, lam_T_rows, mu_rows, *rest):
+        seen.append(mu_rows.shape[0])
+        return original(problem, c, cT, lam_rows, lam_T_rows, mu_rows, *rest)
+
+    monkeypatch.setattr(al, "_exact_lanes", lambda dtype, T: 2)
+    monkeypatch.setattr(al, "_augment_problem", recording)
+    split = port_run(x0=x0s, max_outer=3)
+    assert set(seen) == {2, 1}
+    assert torch.equal(split.status, whole.status)
+    for name in ("outer_iterations", "inner_iterations"):
+        assert torch.equal(getattr(split, name), getattr(whole, name)), name
+    for name, a, b in zip(whole._fields, split, whole):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12, msg=name)

@@ -39,6 +39,8 @@ import ilqr_tpu_torch.pit, ilqr_tpu_torch.al, ilqr_tpu_torch.constraints
 import ilqr_tpu_torch.costs, ilqr_tpu_torch.parallel.mpc
 import ilqr_tpu_torch.utils.checkpoint, ilqr_tpu_torch.utils.metrics
 import ilqr_tpu_torch.utils.profiling
+import ilqr_tpu_torch.parallel.mesh, ilqr_tpu_torch.parallel.distributed
+import ilqr_tpu_torch.parallel.pipeline, ilqr_tpu_torch.entry
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ilqr_tpu"))
@@ -163,6 +165,31 @@ def test_unported_flags_raise_and_name_the_flag(flag):
         batched_solve_fused(problem, torch.zeros((2, 4, 4),
                                                  dtype=torch.float64),
                             us0, config=cfg, device="cpu")
+
+
+def test_per_scenario_engine_refuses_parallel_alpha():
+    """The parallel-alpha ladder exists only in the fused engine; the
+    per-scenario engine (and every entry point built on it) refuses the flag
+    instead of measuring the sequential ladder under its name (ROADMAP
+    C17)."""
+
+    from ilqr_tpu_torch.solver import solve
+    from ilqr_tpu_torch.step import make_scalar_engine
+
+    problem = make_two_link_problem()
+    cfg = ILQRConfig(parallel_alpha_block=4)
+    x0s = torch.tensor([[0.3, 0.7, 0.2, 0.5]] * 2, dtype=torch.float64)
+    us0 = torch.zeros((2, 3, 2), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="parallel_alpha_block"):
+        make_scalar_engine(problem, None, cfg)
+    with pytest.raises(NotImplementedError, match="parallel_alpha_block"):
+        batch_solve(problem, x0s, us0, config=cfg, engine="vmap",
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="fused"):
+        solve(problem, torch.zeros((4, 4), dtype=torch.float64),
+              us0[0], config=cfg, device="cpu")
+    # derivative_chunk changes no result and stays accepted, as in JAX.
+    make_scalar_engine(problem, None, ILQRConfig(derivative_chunk=8))
 
 
 def test_unported_engine_and_backend_raise():
