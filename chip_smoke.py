@@ -14,9 +14,10 @@ Phases, one JSON line each:
 
 1. ``device``   the card as ``nvidia-smi`` names it, torch and CUDA versions.
 2. ``build``    ``nvcc`` builds ``ilqr_tpu_torch/ops/csrc/*.cu`` from the
-                checkout, each also with ``-DRICCATI_STAGE_CLOCKS`` (four
-                ``nvcc`` at once, seconds), registers per kernel from
-                ``ptxas``.
+                checkout: the two sources with fixed instantiations, each
+                also with ``-DRICCATI_STAGE_CLOCKS``, and the instantiations
+                of ``shapes`` (one ``nvcc`` a library, all at once,
+                seconds); registers per kernel from ``ptxas``.
 3. ``kernels``  the one-thread-a-lane Riccati kernel, ``(n, m) = (4, 2)``,
                 against its plain PyTorch version on
                 the card, on local models from ``derivatives_bl`` at a rolled
@@ -63,12 +64,12 @@ Phases, one JSON line each:
                 ``bench.py`` takes them) with the ``(16, 8)`` kernel.  The
                 solve runs at the reference's T=1000 if five passes (ten
                 times the pass timed at T=100) fit the budget, else at T=100
-                with ``max_iter=10``, and stops at a chunk boundary once half the
+                with ``max_iter=5``, and stops at a chunk boundary once half the
                 budget is spent.  Counts are set to 0 before and read after;
                 then the same passes with ``backward_backend="scan"``.  The
                 two backends are held to each other after ONE pass from the
                 same state (1e-4 of max|us|, same alpha on every lane); after
-                the cut solve, where ten passes have amplified the rounding,
+                the cut solve, where five passes have amplified the rounding,
                 the median lane and the cost are held and the worst lane is
                 reported.
 8. ``rbd_parity``   a float64 RBD solve on the card (kernel) against the CPU
@@ -137,11 +138,15 @@ Phases, one JSON line each:
                 ``(17, 8)`` (padded to (24, 8) in ``riccati_wide.cu``), and
                 check-only rows that no path launches: ``(7, 3)`` (padded
                 to (8, 4)), ``(6, 11)`` (more controls than states, padded
-                to (8, 12)), ``(3, 1)`` and ``(5, 5)`` (``riccati.cu``),
-                both entries, both types, seeded inputs at
-                B=256, T=100, against the plain version at the bars of
-                ``kernels``; time, bound, plain time, padded plan and the
-                bytes the source reports, copy path, nvcc seconds.  Then a
+                to (8, 12)), ``(3, 1)`` and ``(5, 5)`` (``riccati.cu``);
+                past the padded (24, 12), in ``riccati_large.cu``, unpadded:
+                ``(25, 12)`` (launched by ``al_6dof``), ``(32, 16)`` (its
+                ceiling), ``(29, 5)`` and ``(10, 13)`` (more controls than
+                states); both entries, both types, seeded
+                inputs at B=256, T=100, against the plain version at the
+                bars of ``kernels``; time, bound, plain time, padded plan and
+                the bytes the source reports, registers and spills, copy
+                path, nvcc seconds.  Then a
                 sha256 of the outputs of every fixed instantiation on
                 seeded inputs (:func:`instantiation_hashes`, which runs on
                 an older tree of the port too: equal hashes show their bits
@@ -152,14 +157,21 @@ Phases, one JSON line each:
                 against the same call with ``"scan"``; the ``(17, 8)``
                 kernel against its plain version on the local models of its
                 first launch, timed.
-22. ``sharded``  ``sharded_batch_solve`` on a world-size-1 NCCL group at the
+22. ``al_6dof``  the same for the 6-DoF arm (n=25 with the index, m=12),
+                B=64, T=50, float32: the kernel at ``(25, 12)``, in
+                ``riccati_large.cu``.
+23. ``sharded``  ``sharded_batch_solve`` on a world-size-1 NCCL group at the
                 main path's width (B=4096, T=100, float32, the kernel):
                 ``torch.equal`` to ``make_batch_solver(engine="vmap")``, the
                 reduced metrics equal to ``batch_metrics``' sums.
-23. ``entry``   ``entry.entry()`` once on the card and
+24. ``entry``   ``entry.entry()`` once on the card and
                 ``entry.dryrun_multichip(1)`` (one NCCL rank, a process of
                 its own); then one ``pipeline`` line saying the two-stage
                 pipeline is not run here (one card; it needs two ranks).
+25. ``examples``  ``examples/torch_two_link_open_loop.py``,
+                ``torch_two_link_swingup.py`` and ``torch_rbd_arm.py``, each
+                ``main`` at a small ``--steps`` on the card: their printed
+                lines, finite results on the card.
 
 Then one line with every kernel's numbers (the batch-first entry in rows of
 its own, at each instantiation its path launched; the instantiations of
@@ -180,9 +192,10 @@ import time
 import torch
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
-# float32 rate outside the tensor cores, and half of it for float64.
+# float32 rate outside the tensor cores, and float64 on its tensor cores
+# (67 TFLOP/s at full precision; riccati_wide.cu uses them).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 N, M = 4, 2
 HEADLINE = dict(B=4096, T=100)
@@ -302,12 +315,13 @@ def riccati_bound_ms(T, B, dtype, N=N, M=M):
     values = B * (T * (per_step_in + per_step_out) + N + N * N + 1 + 2)
     bytes_ms = values * size / HBM_BYTES_PER_S * 1e3
     # Multiply-adds per lane and step, two flops each: B'S, B's, BtS A,
-    # BtS B, Cholesky and the solves of 1+N right-hand sides, H duff and
-    # the two sums, the s update, SA, HK, the S update.
+    # BtS B, Cholesky (M^3/6) and the solves of 1+N right-hand sides, H duff
+    # and the two sums, the s update, SA, HK, the S update (A'SA, K'W with
+    # W = HK + G, G'K).
     fma = (M * N * N + M * N + M * N * N + M * M * N
-           + M * M * M // 3 + (1 + N) * M * M
+           + M * M * M // 6 + (1 + N) * M * M
            + M * M + 2 * M + N * (N + 3 * M)
-           + N * N * N + M * M * N + N * N * (N + 3 * M))
+           + N * N * N + M * M * N + N * N * (N + 2 * M))
     flops_ms = 2 * fma * T * B / PEAK_FLOPS[dtype] * 1e3
     return ((bytes_ms, "bytes") if bytes_ms >= flops_ms
             else (flops_ms, "operations"))
@@ -658,22 +672,27 @@ def phase_solve(problem, config, device):
 # ---------------------------------------------------------------------------
 
 WIDE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_wide.cu"
+LARGE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_large.cu"
+# cuda_riccati.route's source -> its file.
+SOURCE_FILES = {"riccati": KERNEL_SOURCE, "riccati_wide": WIDE_SOURCE,
+                "riccati_large": LARGE_SOURCE}
 # snapshot_every: bench.py --config rbd's default (bench.py:388).
-# max_iter_cut: the passes of the cut solve, 10 (one chunk), cut from 15 so
-# that the phases added with the kernel at any shape and the multi-device
-# entry points fit the script's time (the width is unchanged).
-RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=10, max_iter=100,
+# max_iter_cut: the passes of the cut solve, 5, cut from 15 (to 10 with
+# the kernel at any shape and the multi-device entry points, to 5 with
+# al_6dof and the examples) so that the script fits its time (the width is
+# unchanged).
+RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=5, max_iter=100,
            snapshot_every=4)
 SIX = dict(B=64, T=50, max_iter=15)
 # Seconds the RBD solve and its scan twin may take together: decides T, and
-# stops the solve at a chunk boundary (10 passes) once half of it is spent.
+# stops the solve at a chunk boundary once half of it is spent.
 RBD_BUDGET_S = 150.0
 # Rungs of the line-search ladder the timed forward pass at T=1000 may climb
 # (a rung is one rollout of the whole batch, half a minute there).
 FULL_DEPTH_RUNGS = 3
 # The same for the 6-DoF solve, its float64 run and its scan twin: caps
-# max_iter from the time of the first pass.
-SIX_BUDGET_S = 100.0
+# max_iter from the time of the first pass (cut from 100 s with al_6dof).
+SIX_BUDGET_S = 70.0
 
 # Float32 bound of the lane-spread kernel against the plain version,
 # relative to each output's largest magnitude.  The reasons are those of
@@ -2210,22 +2229,36 @@ def phase_trace_profile(problem, device):
 # path of the system launches, one for each family route() serves: an odd
 # shape padded to (8, 4), more controls than states padded to (8, 12) (the
 # largest M served, past N), and riccati.cu's generic launcher at (3, 1) and
-# at (5, 5), its largest shape.
-NEW_SHAPES = ((17, 8), (7, 3), (6, 11), (3, 1), (5, 5))
-CHECK_ONLY_SHAPES = ((7, 3), (6, 11), (3, 1), (5, 5))
+# at (5, 5), its largest shape.  Past the padded (24, 12), riccati_large.cu:
+# the 6-DoF arm with the index coordinate (25, 12), launched by phase
+# al_6dof, the plan's ceiling (32, 16), an odd shape, (29, 5), and more
+# controls than states, (10, 13).
+NEW_SHAPES = ((17, 8), (7, 3), (6, 11), (3, 1), (5, 5), (25, 12), (32, 16),
+              (29, 5), (10, 13))
+CHECK_ONLY_SHAPES = ((7, 3), (6, 11), (3, 1), (5, 5), (32, 16), (29, 5),
+                     (10, 13))
 SHAPES = dict(B=256, T=100)
 # The fixed instantiations whose outputs are hashed, on seeded inputs of
 # this size: the same hashes on the tree before the kernel learned to pad
 # show that their bits did not move.
 HASH_SHAPES = ((4, 2), (5, 2), (16, 8), (24, 12))
 HASH = dict(B=64, T=50, seed=123)
-# al_solve of the RBD 2-DoF arm with a joint-velocity cap, float32, through
-# the per-scenario engine with the kernel at (17, 8): inner solves of at
-# most 5 passes with a 4-rung ladder and Tassa regularization (rbd_config),
-# max_outer cut so that the kernel run and its scan twin fit AL_RBD_BUDGET_S.
-AL_RBD = dict(B=64, T=50, v_max=2.0, max_iter=5, max_backtracks=4,
+# al_solve of an arm with a joint-velocity cap, float32, through the
+# per-scenario engine: inner solves of at most 5 passes with a 4-rung ladder
+# and Tassa regularization (rbd_config), max_outer cut so that the kernel run
+# and its scan twin fit AL_ARM_BUDGET_S.  Phase al_rbd runs it on the RBD
+# 2-DoF arm (the kernel at (17, 8)), phase al_6dof on the 6-DoF arm
+# (scripts/bench_6dof.py's B and T; the kernel at (25, 12)), where one outer
+# iteration takes about half the budget on an H100 (the phase prints it), so
+# max_outer is cut to 1.
+AL_ARM = dict(B=64, T=50, v_max=2.0, max_iter=5, max_backtracks=4,
               max_outer=10)
-AL_RBD_BUDGET_S = 60.0
+AL_ARM_BUDGET_S = 60.0
+# The examples on the card, each at a small --steps (the defaults, 900 and
+# 1000 steps with 40 and 50 iterations, are minutes of host-bound work).
+EXAMPLES = (("torch_two_link_open_loop", ["--steps", "100"]),
+            ("torch_two_link_swingup", ["--steps", "100", "--max-iter", "10"]),
+            ("torch_rbd_arm", ["--steps", "50", "--max-iter", "5"]))
 # The 2-link at the main path's width through sharded_batch_solve on a
 # world-size-1 NCCL group.
 SHARDED = dict(B=4096, T=100)
@@ -2295,9 +2328,10 @@ def phase_shapes(device, built):
     version at the existing bars (``symmetrize`` off too, in float64), the
     two entries equal (``torch.equal``); the time beside the bound (logical
     bytes read and written once over 3.35 TB/s) and the plain version's, the
-    padded plan and its bytes, the copy path, the ``nvcc`` seconds of the
-    new libraries (``built``).  Then the hashes of the fixed
-    instantiations' outputs.  Returns ``(batch-last rows, batch-first
+    padded plan and its bytes, registers and spills, the copy path, the
+    ``nvcc`` seconds of the new libraries (``built``), the cycles a step by
+    stage of ``riccati_large.cu``'s float32 rows.  Then the hashes of the
+    fixed instantiations' outputs.  Returns ``(batch-last rows, batch-first
     rows)`` for the ``kernels`` line."""
 
     from ilqr_tpu_torch.ops import _build, cuda_riccati
@@ -2335,13 +2369,14 @@ def phase_shapes(device, built):
                      F32_REL_BOUND)
             bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
             library = cuda_riccati.library_and_symbol(n, m, dtype)[0]
-            # The padded plan's shared memory, as the source reckons it.
+            # The plan's shared memory, as the source reckons it.
             plan_bytes = (
                 _build.load(library).riccati_cuda_instance_shared_bytes()
-                if source == "riccati_wide" else None)
+                if source != "riccati" else None)
             common = dict(
                 n=n, m=m, B=B, T=T, source=source, padded=[NP, MP],
                 plan_bytes=plan_bytes,
+                ptxas=ptxas_summary(_build, [library]),
                 library=library,
                 nvcc_s=built.get(library), max_abs_err=max_abs,
                 max_rel_err=max_rel,
@@ -2353,6 +2388,10 @@ def phase_shapes(device, built):
                 common, copy_path=path_bl,
                 ms=device_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20),
                 call_ms=sync_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20))
+            if source == "riccati_large" and dtype == torch.float32:
+                # Cycles a step by stage, from the stage-clock build.
+                rows_bl[name]["stage_cycles"] = (
+                    cuda_riccati.riccati_stage_clocks(bl, reg))
             rows_bf[name] = dict(
                 common, copy_path=path_bf, equal_to_batch_last=True,
                 ms=device_time(lambda: riccati_scan_cuda_batched(*bf, reg),
@@ -2368,16 +2407,35 @@ def phase_shapes(device, built):
 
 def phase_al_rbd(cases, device):
     """``al_solve`` of the RBD 2-DoF arm with a joint-velocity cap, B=64,
-    T=50, float32, ``backward_backend="pallas"``: the index coordinate makes
-    the state n=17, so every inner backward pass launches the batch-first
-    entry of the ``(17, 8)`` instantiation (padded to (24, 8) in
-    ``riccati_wide.cu``).  ``max_outer`` cut to AL_RBD_BUDGET_S (printed).
-    Held against the same call with ``"scan"``: ``status`` equal, and ``us``
-    as the RBD solves are held after a cut solve (the median lane within
-    F32_SOLVE_MEDIAN_BOUND_RBD of max|us|, the cost of every lane within
-    F32_SOLVE_COST_BOUND_RBD; the worst lane printed).  Then the ``(17, 8)``
-    kernel at this phase's shapes against its plain version, on what its
-    first launch was handed (as phase ``al`` holds ``(5, 2)``)."""
+    T=50: the index coordinate makes the state n=17, so every inner backward
+    pass launches the batch-first entry of the ``(17, 8)`` instantiation
+    (padded to (24, 8) in ``riccati_wide.cu``).  See :func:`al_arm`."""
+
+    return al_arm("al_rbd", cases[False], AL_ARM, AL_ARM_BUDGET_S, device)
+
+
+def phase_al_6dof(cases, device):
+    """``al_solve`` of the 6-DoF arm with its six joint velocities capped,
+    B=64, T=50: the state is n=25 with the index, so every inner backward
+    pass launches the batch-first entry of the ``(25, 12)`` instantiation,
+    past the padded (24, 12), in ``riccati_large.cu``.  See
+    :func:`al_arm`."""
+
+    return al_arm("al_6dof", cases[True], AL_ARM, AL_ARM_BUDGET_S, device)
+
+
+def al_arm(phase, case, spec, budget_s, device):
+    """``al_solve`` of a floating-base arm with ``|joint velocity| <=
+    spec["v_max"]``, float32, ``backward_backend="pallas"``: every inner
+    backward pass launches the batch-first entry of the kernel at the
+    augmented ``(n + 1, m)``.  ``max_outer`` cut to ``budget_s`` (printed);
+    where one outer iteration leaves room for no second, the run that timed
+    it is the phase's run.  Held against the same call with ``"scan"``:
+    ``status`` equal, and ``us`` as the RBD solves are held after a cut solve
+    (the median lane within F32_SOLVE_MEDIAN_BOUND_RBD of max|us|, the cost
+    of every lane within F32_SOLVE_COST_BOUND_RBD; the worst lane printed).
+    Then the kernel at this phase's shapes against its plain version, on
+    what its first launch was handed (as phase ``al`` holds ``(5, 2)``)."""
 
     import functools
 
@@ -2389,21 +2447,22 @@ def phase_al_rbd(cases, device):
     from ilqr_tpu_torch.ops import cuda_riccati
     from ilqr_tpu_torch.problem import problem_dynamics, rollout
 
-    case = cases[False]
     problem = case[0]
-    B, T = AL_RBD["B"], AL_RBD["T"]
+    B, T = spec["B"], spec["T"]
     x0s, us0 = rbd_inputs(case, B, T, torch.float32, 31, device)
-    v_max = AL_RBD["v_max"]
+    v_max = spec["v_max"]
+    # The joints: what the floating base's six velocities leave of nv.
+    joints = problem.control_dim - 6
 
     def cap(x, u):
-        # |joint velocity| <= v_max: the last two state components (the
-        # state's components lead, batch axes trail).
+        # |joint velocity| <= v_max: the last `joints` state components
+        # (the state's components lead, batch axes trail).
         v = torch.as_tensor(v_max, dtype=x.dtype, device=x.device)
-        return torch.cat([x[-2:] - v, -x[-2:] - v])
+        return torch.cat([x[-joints:] - v, -x[-joints:] - v])
 
     def run(backend, max_outer):
-        cfg = rbd_config(AL_RBD["max_iter"], T, backend).replace(
-            max_backtracks=AL_RBD["max_backtracks"])
+        cfg = rbd_config(spec["max_iter"], T, backend).replace(
+            max_backtracks=spec["max_backtracks"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = al.al_solve(problem, x0s, us0, cap, config=cfg,
@@ -2419,11 +2478,10 @@ def phase_al_rbd(cases, device):
     cuda_riccati.reset_launch_counts()
     res, one_s = run("pallas", 1)
     solve_s = one_s
-    max_outer = max(1, min(AL_RBD["max_outer"],
-                           int(AL_RBD_BUDGET_S / (2 * one_s))))
-    if max_outer < AL_RBD["max_outer"]:
-        print(f"chip_smoke: al_rbd: max_outer cut from {AL_RBD['max_outer']} "
-              f"to {max_outer} by the {AL_RBD_BUDGET_S} s budget",
+    max_outer = max(1, min(spec["max_outer"], int(budget_s / (2 * one_s))))
+    if max_outer < spec["max_outer"]:
+        print(f"chip_smoke: {phase}: max_outer cut from {spec['max_outer']} "
+              f"to {max_outer} by the {budget_s} s budget",
               file=sys.stderr, flush=True)
     if max_outer > 1:
         cuda_riccati.reset_launch_counts()
@@ -2447,12 +2505,13 @@ def phase_al_rbd(cases, device):
     by_status = {Status(int(c)).name: int((res.status == c).sum())
                  for c in res.status.unique()}
 
-    # The (17, 8) kernel on the local models of the first augmented problem
+    # The kernel on the local models of the first augmented problem
     # (multipliers 0, penalty mu0) at the rollout of zero controls: what its
     # first launch was handed.  A lane's batch-first step is not whole
-    # 16-byte rows at n=17, so every launch copies per element.
+    # 16-byte rows at n=17 (riccati_large.cu copies a value at a time at any
+    # shape), so every launch copies per element.
     n_aug, m = problem.state_dim + 1, problem.control_dim
-    p = 4
+    p = 2 * joints
     lanes = torch.arange(B, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     prob_al = al._augment_problem(
@@ -2475,10 +2534,12 @@ def phase_al_rbd(cases, device):
     for row in rows.values():
         assert row["copy_path"] == "per_element", row["copy_path"]
     del m32, As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN
-    emit(phase="al_rbd", B=B, T=T, dtype="float32",
+    emit(phase=phase, B=B, T=T, dtype="float32",
          n_augmented=problem.state_dim + 1, m=problem.control_dim,
-         v_cap=v_max, max_outer=max_outer, max_outer_config=AL_RBD["max_outer"],
-         budget_s=AL_RBD_BUDGET_S, one_outer_s=one_s, solve_s=solve_s,
+         v_cap=v_max, capped_joints=joints, inner_max_iter=spec["max_iter"],
+         max_outer=max_outer, max_outer_config=spec["max_outer"],
+         one_outer_iteration_is_the_run=max_outer == 1,
+         budget_s=budget_s, one_outer_s=one_s, solve_s=solve_s,
          scan_solve_s=scan_s, batch_first_launches={name: launches},
          lanes_by_status=by_status,
          max_violation=float(res.max_violation.max()),
@@ -2599,6 +2660,52 @@ def phase_entry(device):
     emit(phase="pipeline", run=False, reason=PIPELINE_NOTE)
 
 
+def phase_examples(device):
+    """The port's examples as a user runs them, on the card (no ``--cpu``),
+    each ``main`` at the small ``--steps`` of EXAMPLES: what each prints,
+    and its result finite, on the card, of the expected shape.  Where
+    matplotlib is missing, the examples skip only the animation (they say
+    so on stderr)."""
+
+    import importlib.util
+    import io
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "examples"
+    runs = {}
+    for name, argv in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(name,
+                                                      root / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        if name != "torch_rbd_arm":
+            # The 2-link examples write an animation by default: here, where
+            # matplotlib allows one, into the scratch directory.
+            argv = argv + ["--out", str(scratch_path(f"{name}.gif"))]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        steps = int(argv[argv.index("--steps") + 1])
+        xs = result if name == "torch_two_link_open_loop" else result.xs
+        assert xs.device.type == "cuda" and xs.shape[-2] == steps + 1, (
+            name, xs.device, xs.shape)
+        assert bool(torch.isfinite(xs).all()), name
+        if name == "torch_two_link_open_loop":
+            assert lines[0].startswith(f"rolled out {steps} steps"), lines
+        else:
+            iters = int(result.iterations)
+            assert iters >= 1 and len([ln for ln in lines if ln.startswith(
+                "Iteration: ")]) == iters, lines
+            assert any(ln.startswith(f"status={int(result.status)} "
+                                     f"iterations={iters}") for ln in lines)
+        runs[name] = dict(argv=argv, seconds=seconds, printed=lines)
+    emit(phase="examples", runs=runs)
+
+
 def ptxas_summary(_build, libraries=None):
     """``{kernel: "registers, spill bytes, shared memory"}`` from the logs
     of the build (``nvcc -Xptxas -v``), template arguments as the name."""
@@ -2653,18 +2760,22 @@ def main():
     from ilqr_tpu_torch.ops import cuda_riccati
 
     t0 = time.perf_counter()
-    # Every source and its stage-clock build, and the instantiations of
-    # NEW_SHAPES, one nvcc each, all together.
+    # Every source with fixed instantiations and its stage-clock build, and
+    # the instantiations of NEW_SHAPES, one nvcc each, all together.
     instances = [cuda_riccati.library_and_symbol(n, m, dtype)[0]
                  for n, m in NEW_SHAPES
                  for dtype in (torch.float32, torch.float64)]
-    libraries = list(_build.SOURCES) + list(_build.VARIANTS) + instances
+    # The stage-clock builds of riccati_large.cu's float32 rows (shapes).
+    clocks = [f"{name}_clocks" for name in instances
+              if name.startswith("riccati_large_") and name.endswith("f32")]
+    libraries = (list(_build.SOURCES) + list(_build.VARIANTS) + instances
+                 + clocks)
     _build.build(libraries)
     for name in list(_build.SOURCES) + instances:
         _build.load(name)
     built = dict(_build.build_seconds)
     emit(phase="build", seconds=time.perf_counter() - t0,
-         sources=[f"ilqr_tpu_torch/ops/csrc/{n}.cu" for n in _build.SOURCES],
+         sources=sorted(SOURCE_FILES.values()),
          libraries=libraries, nvcc_seconds=built,
          ptxas=ptxas_summary(_build, libraries))
 
@@ -2706,8 +2817,11 @@ def main():
     shape_rows, shape_bf_rows = phase_shapes(device, built)
     al_rbd_launches, al_rbd_rows = phase_al_rbd(cases, device)
     add(bf_launches, al_rbd_launches)
+    al_6dof_launches, al_6dof_rows = phase_al_6dof(cases, device)
+    add(bf_launches, al_6dof_launches)
     add(bf_launches, phase_sharded(problem, solve_cfg, device))
     phase_entry(device)
+    phase_examples(device)
     marks = [("start", t_start)] + EMITTED
     emit(phase="total", seconds=time.perf_counter() - t_start,
          seconds_by_phase={p: t - t_prev for (_, t_prev), (p, t)
@@ -2723,11 +2837,12 @@ def main():
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
     # The batch-first entry, at each instantiation its path launched: the
-    # (17, 8) row from al_rbd's own local models.
+    # (17, 8) and (25, 12) rows from al_rbd's and al_6dof's own local models.
     bf_rows.update(shape_bf_rows)
     bf_rows.update(al_rbd_rows)
-    sources.update({name: WIDE_SOURCE if row["source"] == "riccati_wide"
-                    else KERNEL_SOURCE for name, row in shape_rows.items()})
+    bf_rows.update(al_6dof_rows)
+    sources.update({name: SOURCE_FILES[row["source"]]
+                    for name, row in shape_rows.items()})
     for name, count in sorted(bf_launches.items()):
         row = bf_rows[name]
         assert count >= 1, (name, bf_launches)
@@ -2740,8 +2855,8 @@ def main():
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
     # The instantiations of NEW_SHAPES that no path of this run launched
-    # (all but (17, 8); (17, 8) batch-last, and batch-first in float64):
-    # rows of the shapes phase's checks, marked as such.
+    # (all but (17, 8) and (25, 12); those batch-last, and batch-first in
+    # float64): rows of the shapes phase's checks, marked as such.
     for entry, shape_rows_e, counts in (("", shape_rows, launches),
                                         ("_batch_first", shape_bf_rows,
                                          bf_launches)):

@@ -20,6 +20,8 @@ instantiation of the kernel at any ``(n, m)``: the source compiled with
 exports one generic launcher, ``riccati_cuda_instance``, in place of the
 source's fixed instantiations.  It is built at first use like the others,
 and has its stage-clock build too (``..._clocks``).
+``csrc/riccati_large.cu`` has no fixed instantiation: it is built only this
+way.
 
 The library's name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  The build directory
@@ -44,8 +46,10 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# One shared library per source.
+# One shared library per source with fixed instantiations.
 SOURCES = ("riccati", "riccati_wide")
+# Every source an instantiation library may be built from.
+INSTANCE_SOURCES = SOURCES + ("riccati_large",)
 # The stage-clock builds: library -> (source, extra nvcc flags).
 VARIANTS = {f"{name}_clocks": (name, ("-DRICCATI_STAGE_CLOCKS",))
             for name in SOURCES}
@@ -53,7 +57,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # An instantiation library: <source>_<n>x<m>_<f32|f64>[_clocks].
 _INSTANCE = re.compile(r"^(%s)_(\d+)x(\d+)_(f32|f64)(_clocks)?$"
-                       % "|".join(SOURCES))
+                       % "|".join(INSTANCE_SOURCES))
 _SCALARS = {"f32": "float", "f64": "double"}
 
 
@@ -63,7 +67,8 @@ def instance(source: str, n: int, m: int, tag: str) -> str:
 
     name = f"{source}_{n}x{m}_{tag}"
     if not _INSTANCE.match(name):
-        raise ValueError(f"no instantiation {name!r} of csrc/{SOURCES}")
+        raise ValueError(
+            f"no instantiation {name!r} of csrc/{INSTANCE_SOURCES}")
     return name
 
 
@@ -74,8 +79,8 @@ def _source_and_flags(name: str):
     match = _INSTANCE.match(name)
     if match is None:
         raise ValueError(f"unknown library {name!r}: csrc/ has {SOURCES}, "
-                         "their stage-clock builds and their instantiations "
-                         "<source>_<n>x<m>_<f32|f64>")
+                         "their stage-clock builds and the instantiations "
+                         f"<source>_<n>x<m>_<f32|f64> of {INSTANCE_SOURCES}")
     source, n, m, tag, clocks = match.groups()
     extra = (f"-DRICCATI_N={n}", f"-DRICCATI_M={m}",
              f"-DRICCATI_SCALAR={_SCALARS[tag]}")

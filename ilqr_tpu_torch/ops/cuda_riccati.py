@@ -3,13 +3,14 @@
 Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (its batch-last entry
 ``riccati_scan_pallas_bl`` and its batch-first entry
 ``riccati_scan_pallas_batched``).  The kernel is written by hand for ``sm_90a``
-in two designs — ``csrc/riccati.cu``, one thread a lane with a ring of
+in three designs — ``csrc/riccati.cu``, one thread a lane with a ring of
 prefetched steps, for ``(n, m) = (4, 2)`` and ``(5, 2)`` (the 2-link arm
 under ``al.al_solve``, whose state carries the step index);
 ``csrc/riccati_wide.cu``, a lane
 spread over four warps with its matrices in shared memory and its inputs
-brought in by TMA, for ``(16, 8)`` and ``(24, 12)`` (each source says why) —
-both reading either layout in place, selected by a layout argument, built
+brought in by TMA, for ``(16, 8)`` and ``(24, 12)``; ``csrc/riccati_large.cu``
+for the shapes past the wide plan (below; each source says why) — all
+reading either layout in place, selected by a layout argument, built
 at first use by :mod:`ilqr_tpu_torch.ops._build` and called through ctypes.
 It has no gradient (the JAX kernel has none either), so there is no
 ``torch.autograd.Function`` around it.
@@ -18,9 +19,12 @@ Any other ``(n, m)``, as the Pallas kernel is specialized for whatever
 shape reaches it, is an instantiation built at first use
 (:func:`kernel_name`, :func:`route`): ``riccati.cu`` where ``n, m <= 5``
 (one thread a lane, whose registers are nearly spent at ``(5, 2)``),
-``riccati_wide.cu`` padded to ``(ceil(n/8)*8, ceil(m/4)*4)`` otherwise, up
-to the padded ``(24, 12)`` (:data:`WIDE_MAX`, the largest shape known to
-build).  A larger shape raises before any ``nvcc`` run.
+``riccati_wide.cu`` padded to ``(ceil(n/8)*8, ceil(m/4)*4)`` up to the
+padded ``(24, 12)`` (:data:`WIDE_MAX`, where its plan of two lanes a block
+ends), and ``csrc/riccati_large.cu`` past that — one lane a block at the
+logical shape, unpadded — up to ``n <= 32``, ``m <= 16``
+(:data:`LARGE_MAX`, the largest shape held on the card).  A larger shape
+raises before any ``nvcc`` run.
 
 * :func:`riccati_scan_cuda_bl` — the wrapper.  On CUDA tensors it launches
   the kernel or raises; on CPU tensors it takes the plain version.  It
@@ -90,9 +94,12 @@ _TAGS = {torch.float32: "f32", torch.float64: "f64"}
 
 # riccati.cu takes a shape whose n and m are at most this.
 ONE_THREAD_MAX = 5
-# The largest padded (N, M) riccati_wide.cu serves: the largest shape known
-# to build (its plan's static_asserts own the exact limit).
+# The largest padded (N, M) riccati_wide.cu serves: two lanes a block and
+# one warp for the N + 1 column solves end its plan there.
 WIDE_MAX = (24, 12)
+# The largest (n, m) riccati_large.cu serves, unpadded: the largest shape
+# held on the card (its plan's static_asserts own the exact limit).
+LARGE_MAX = (32, 16)
 
 # Launches per kernel name: one is added where a wrapper launches the
 # kernel, and nowhere else — by the batch-last entry to ``launch_counts``,
@@ -106,7 +113,8 @@ BATCH_LAST, BATCH_FIRST = 0, 1
 
 # The copy paths a launcher reports: riccati_wide.cu takes TMA where every
 # input allows it, else copies per element; riccati.cu copies a value at a
-# time batch-last and 16 bytes at a time batch-first.
+# time batch-last and 16 bytes at a time batch-first; riccati_large.cu a
+# value at a time.
 COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16"}
 
 # Kernel name, layout and copy path of the last launch (either entry, or
@@ -137,13 +145,15 @@ def route(n: int, m: int) -> Tuple[str, int, int]:
     if n <= ONE_THREAD_MAX and m <= ONE_THREAD_MAX:
         return "riccati", n, m
     N, M = -(-n // 8) * 8, -(-m // 4) * 4
-    if N > WIDE_MAX[0] or M > WIDE_MAX[1]:
+    if N <= WIDE_MAX[0] and M <= WIDE_MAX[1]:
+        return "riccati_wide", N, M
+    if n > LARGE_MAX[0] or m > LARGE_MAX[1]:
         raise NotImplementedError(
-            f"the fused Riccati kernel serves n <= {WIDE_MAX[0]} and m <= "
-            f"{WIDE_MAX[1]}: (n, m) = ({n}, {m}) pads to ({N}, {M}) in "
-            f"riccati_wide.cu, past the largest shape served, padded "
-            f"{WIDE_MAX}; use backward_backend='scan'")
-    return "riccati_wide", N, M
+            f"the fused Riccati kernel serves n <= {LARGE_MAX[0]} and m <= "
+            f"{LARGE_MAX[1]}: (n, m) = ({n}, {m}) is past the largest shape "
+            f"served, {LARGE_MAX} in riccati_large.cu; use "
+            f"backward_backend='scan'")
+    return "riccati_large", n, m
 
 
 def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
@@ -353,7 +363,9 @@ STAGES = {"riccati": ("copy_issue_wait", "smem_load", "gains", "value"),
           # H duff, the dv sums, then the wait for warps 1.. (A'(SA) and the
           # repack of the next step).
           "riccati_wide": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd", "dv",
-                           "P_repack_wait", "copy_issue", "value")}
+                           "P_repack_wait", "copy_issue", "value"),
+          "riccati_large": ("BtS_SA", "G_H_P", "cholesky", "solves", "W_Hd",
+                            "value_wait")}
 
 
 def riccati_stage_clocks(arrays, reg, layout=BATCH_LAST):

@@ -24,8 +24,9 @@ from ilqr_tpu_torch.precision import full_precision, resolve_device
 torch.set_num_threads(1)  # several pytest workers share the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_SOURCES = sorted((ROOT / "ilqr_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_SOURCES = (sorted((ROOT / "ilqr_tpu_torch").rglob("*.py"))
+                + [ROOT / "chip_smoke.py"]
+                + sorted((ROOT / "examples").glob("torch_*.py")))
 
 IMPORT_CHECK = """
 import sys

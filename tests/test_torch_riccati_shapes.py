@@ -1,14 +1,18 @@
 """The Riccati kernel at any ``(n, m)``: its plain version at shapes that no
 fixed instantiation has, the padding rule of ``csrc/riccati_wide.cu``, and
-the routing of a shape to a source, float64, CPU.
+the routing of a shape to a source (``riccati.cu``, ``riccati_wide.cu`` or,
+past the padded ``(24, 12)``, ``riccati_large.cu``), float64, CPU.
 
 * ``(7, 3)``: the port's plain version (and the wrapper on CPU tensors)
   against the JAX ``riccati_scan_pallas_bl`` in interpret mode — the TPU
   kernel, specialized for whatever shape reaches it — at T=8, B=4, rtol
   1e-10 (the matrices also atol 1e-12, as ``tests/test_torch_riccati.py``).
-* ``(17, 8)`` (the RBD arm under ``al_solve``): against the JAX
-  ``backward.riccati_scan`` un-jitted on single lanes (``ROADMAP.md`` C9:
-  the Pallas interpreter takes minutes at n >= 16 on a CPU).
+* ``(17, 8)`` (the RBD arm under ``al_solve``), and ``(25, 12)`` (the 6-DoF
+  arm under ``al_solve``) and ``(29, 5)`` past the wide plan: against the
+  JAX ``backward.riccati_scan`` un-jitted on single lanes, rtol 1e-10 /
+  atol 1e-12, the bar ``tests/test_pallas_riccati.py`` holds the Pallas
+  kernel to against that scan (``ROADMAP.md`` C9: the Pallas interpreter
+  takes minutes at n >= 16 on a CPU).
 * The padding rule: the plain version on inputs zero-padded to the wide
   kernel's tiles, the padded diagonal of H set to 1, equals the unpadded
   recursion on the logical block bit for bit, with its products summed in
@@ -17,8 +21,10 @@ the routing of a shape to a source, float64, CPU.
   otherwise: there the two agree to rtol 1e-13).
 * The routing as pure Python: the fixed instantiations keep their names,
   ``(17, 8)`` goes to the wide source padded to ``(24, 8)``, ``(6, 11)``
-  to ``(8, 12)``, ``(25, 12)`` and ``(10, 13)`` raise naming the limit (the
-  padded ``(24, 12)``) before any ``nvcc`` run.
+  to ``(8, 12)``; ``(25, 12)``, ``(32, 16)``, ``(29, 5)``, ``(32, 12)``
+  and ``(10, 13)``, which pad past ``(24, 12)``, go to
+  ``riccati_large.cu`` unpadded; shapes past ``(32, 16)`` raise naming
+  that ceiling before any ``nvcc`` run.
 """
 
 import jax.numpy as jnp
@@ -78,9 +84,11 @@ def test_plain_at_7x3_matches_the_pallas_kernel():
     check(riccati_scan_cuda_bl(*tm, to_torch(reg)), ref)
 
 
-def test_plain_at_17x8_matches_the_jax_scan():
-    B, T = 2, 8
-    models = synthetic_models(17, 8, B, T, seed=1)
+def check_against_jax_scan(n, m, B, T, seed):
+    """The plain version against the JAX ``riccati_scan``, un-jitted, one
+    lane at a time."""
+
+    models = synthetic_models(n, m, B, T, seed=seed)
     reg = 1e-2
     port = riccati_scan_plain_bl(*(to_torch(a) for a in models), reg)
     for b in range(B):
@@ -91,6 +99,18 @@ def test_plain_at_17x8_matches_the_jax_scan():
                                qxN, QN, reg=reg, symmetrize=True)
         check(tuple(p[..., b] for p in port),
               (ref.duffs, ref.Ks, ref.dV1, ref.dV2))
+
+
+def test_plain_at_17x8_matches_the_jax_scan():
+    check_against_jax_scan(17, 8, B=2, T=8, seed=1)
+
+
+@pytest.mark.parametrize("n,m", [(25, 12), (29, 5)])
+def test_plain_past_the_wide_plan_matches_the_jax_scan(n, m):
+    # The shapes riccati_large.cu runs: the plain version takes them as it
+    # takes any other, and is its oracle on the card.
+    assert cuda_riccati.route(n, m) == ("riccati_large", n, m)
+    check_against_jax_scan(n, m, B=2, T=4, seed=n + m)
 
 
 def pad(models, n, m, N, M):
@@ -180,11 +200,24 @@ def test_routing():
         "riccati_wide_17x8_f32", "riccati_cuda_instance")
     assert cuda_riccati.library_and_symbol(3, 1, f64) == (
         "riccati_3x1_f64", "riccati_cuda_instance")
-    # Past the padded (24, 12), the largest shape known to build: refused
-    # before any nvcc run, in either type.
-    for n, m in ((25, 12), (32, 12), (24, 24), (10, 13)):
+    # The padded (24, 12) is the wide plan's last shape; past it the large
+    # plan takes the logical shape, unpadded, up to (32, 16).
+    assert cuda_riccati.route(24, 12) == ("riccati_wide", 24, 12)
+    for n, m in ((25, 12), (32, 16), (29, 5), (32, 12), (10, 13), (25, 1),
+                 (1, 16)):
+        assert cuda_riccati.route(n, m) == ("riccati_large", n, m)
+    assert cuda_riccati.kernel_name(25, 12, f32) == "riccati_cuda_25x12_f32"
+    assert cuda_riccati.library_and_symbol(25, 12, f32) == (
+        "riccati_large_25x12_f32", "riccati_cuda_instance")
+    assert cuda_riccati.library_and_symbol(32, 16, f64) == (
+        "riccati_large_32x16_f64", "riccati_cuda_instance")
+    assert cuda_riccati.LARGE_MAX == (32, 16)
+    # Past (32, 16), the largest shape held on the card: refused before any
+    # nvcc run, in either type, with the ceiling named.
+    for n, m in ((33, 12), (25, 17), (24, 24), (33, 1), (40, 20)):
         for dtype in (f32, f64):
-            with pytest.raises(NotImplementedError, match="n <= 24 and m <= 12"):
+            with pytest.raises(NotImplementedError,
+                               match=r"n <= 32 and m <= 16.*\(32, 16\)"):
                 cuda_riccati.kernel_name(n, m, dtype)
     with pytest.raises(NotImplementedError, match="float16"):
         cuda_riccati.kernel_name(4, 2, torch.float16)
@@ -200,6 +233,14 @@ def test_build_flags_of_an_instantiation():
     src, flags = _build._source_and_flags("riccati_3x1_f64_clocks")
     assert src.name == "riccati.cu"
     assert flags[-2:] == ("-DRICCATI_SCALAR=double", "-DRICCATI_STAGE_CLOCKS")
+    # riccati_large.cu is built only as an instantiation: it has no fixed
+    # library of its own.
+    src, flags = _build._source_and_flags("riccati_large_25x12_f32")
+    assert src.name == "riccati_large.cu"
+    assert flags[-3:] == ("-DRICCATI_N=25", "-DRICCATI_M=12",
+                          "-DRICCATI_SCALAR=float")
+    assert "riccati_large" not in _build.SOURCES
+    assert "riccati_large" in _build.INSTANCE_SOURCES
     # The fixed libraries keep their flags.
     assert _build._source_and_flags("riccati_wide")[1] == _build.NVCC_FLAGS
     assert _build._source_and_flags("riccati_clocks")[1] == (
@@ -217,7 +258,8 @@ def test_new_shapes_on_the_card():
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for n, m in ((17, 8), (7, 3), (3, 1), (5, 5), (6, 11)):
+    for n, m in ((17, 8), (7, 3), (3, 1), (5, 5), (6, 11), (25, 12),
+                 (32, 16), (29, 5)):
         models = tuple(to_torch(a).cuda()
                        for a in synthetic_models(n, m, 5, 7, seed=n))
         name = cuda_riccati.kernel_name(n, m, torch.float64)
