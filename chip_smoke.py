@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --hashes [ROOT]   # only the fixed instantiations'
                                             # output hashes (of the port in ROOT)
+    python3 chip_smoke.py --large-times [ROOT]   # only riccati_large.cu's
+                                            # device times (of the port in ROOT)
 
 Needs one CUDA card (written for an H100, ``sm_90a``) and ``nvcc``; with no
 card it exits non-zero and prints no result.  It imports nothing of JAX and
@@ -64,12 +66,12 @@ Phases, one JSON line each:
                 ``bench.py`` takes them) with the ``(16, 8)`` kernel.  The
                 solve runs at the reference's T=1000 if five passes (ten
                 times the pass timed at T=100) fit the budget, else at T=100
-                with ``max_iter=5``, and stops at a chunk boundary once half the
+                with ``max_iter=3``, and stops at a chunk boundary once half the
                 budget is spent.  Counts are set to 0 before and read after;
                 then the same passes with ``backward_backend="scan"``.  The
                 two backends are held to each other after ONE pass from the
                 same state (1e-4 of max|us|, same alpha on every lane); after
-                the cut solve, where five passes have amplified the rounding,
+                the cut solve, where its passes have amplified the rounding,
                 the median lane and the cost are held and the worst lane is
                 reported.
 8. ``rbd_parity``   a float64 RBD solve on the card (kernel) against the CPU
@@ -139,14 +141,17 @@ Phases, one JSON line each:
                 check-only rows that no path launches: ``(7, 3)`` (padded
                 to (8, 4)), ``(6, 11)`` (more controls than states, padded
                 to (8, 12)), ``(3, 1)`` and ``(5, 5)`` (``riccati.cu``);
-                past the padded (24, 12), in ``riccati_large.cu``, unpadded:
+                past the padded (24, 12), in ``riccati_large.cu``:
                 ``(25, 12)`` (launched by ``al_6dof``), ``(32, 16)`` (its
                 ceiling), ``(29, 5)`` and ``(10, 13)`` (more controls than
                 states); both entries, both types, seeded
                 inputs at B=256, T=100, against the plain version at the
                 bars of ``kernels``; time, bound, plain time, padded plan and
                 the bytes the source reports, registers and spills, copy
-                path, nvcc seconds.  Then a
+                path, nvcc seconds, and for ``riccati_large.cu`` the blocks
+                resident on an SM and the cycles a step by stage of its
+                float32 rows (its stage-clock builds; float64's are in
+                ``--large-times``).  Then a
                 sha256 of the outputs of every fixed instantiation on
                 seeded inputs (:func:`instantiation_hashes`, which runs on
                 an older tree of the port too: equal hashes show their bits
@@ -172,6 +177,11 @@ Phases, one JSON line each:
                 ``torch_two_link_swingup.py`` and ``torch_rbd_arm.py``, each
                 ``main`` at a small ``--steps`` on the card: their printed
                 lines, finite results on the card.
+
+``--large-times [ROOT]`` prints only the device times of the
+``riccati_large.cu`` instantiations of LARGE_TIMES (both entries, both
+types) of the port in ROOT (an older tree unpacked beside this one, as for
+``--hashes``) or of this tree: run both in one call to compare two plans.
 
 Then one line with every kernel's numbers (the batch-first entry in rows of
 its own, at each instantiation its path launched; the instantiations of
@@ -677,11 +687,12 @@ LARGE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_large.cu"
 SOURCE_FILES = {"riccati": KERNEL_SOURCE, "riccati_wide": WIDE_SOURCE,
                 "riccati_large": LARGE_SOURCE}
 # snapshot_every: bench.py --config rbd's default (bench.py:388).
-# max_iter_cut: the passes of the cut solve, 5, cut from 15 (to 10 with
+# max_iter_cut: the passes of the cut solve, 3, cut from 15 (to 10 with
 # the kernel at any shape and the multi-device entry points, to 5 with
-# al_6dof and the examples) so that the script fits its time (the width is
+# al_6dof and the examples, to 3 when a host whose cores are shared ran the
+# script in 969 s) so that the script fits its time (the width is
 # unchanged).
-RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=5, max_iter=100,
+RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=3, max_iter=100,
            snapshot_every=4)
 SIX = dict(B=64, T=50, max_iter=15)
 # Seconds the RBD solve and its scan twin may take together: decides T, and
@@ -691,8 +702,9 @@ RBD_BUDGET_S = 150.0
 # (a rung is one rollout of the whole batch, half a minute there).
 FULL_DEPTH_RUNGS = 3
 # The same for the 6-DoF solve, its float64 run and its scan twin: caps
-# max_iter from the time of the first pass (cut from 100 s with al_6dof).
-SIX_BUDGET_S = 70.0
+# max_iter from the time of the first pass (cut from 100 s with al_6dof, to
+# 40 s with RBD["max_iter_cut"], for the same reason).
+SIX_BUDGET_S = 40.0
 
 # Float32 bound of the lane-spread kernel against the plain version,
 # relative to each output's largest magnitude.  The reasons are those of
@@ -2322,15 +2334,79 @@ def instantiation_hashes(device):
     return out
 
 
+def resident_blocks(_build, library, source):
+    """``{"batch_last": k, "batch_first": k}``: the blocks (lanes) of a
+    ``riccati_large.cu`` instantiation resident on one SM of this card, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` counts them (None for
+    the other sources)."""
+
+    if source != "riccati_large":
+        return None
+    fn = _build.load(library).riccati_cuda_instance_blocks_per_sm
+    return {"batch_last": fn(0), "batch_first": fn(1)}
+
+
+# The instantiations of riccati_large.cu that --large-times times, on the
+# seeded inputs of phase shapes: its four shapes at B=256, T=100 and al_6dof's
+# (25, 12) at its B=64, T=50.  Their float64 stage clocks come with them at
+# B=256 (phase shapes has the float32 ones).
+LARGE_TIMES = (((25, 12), 256, 100), ((32, 16), 256, 100), ((29, 5), 256, 100),
+               ((10, 13), 256, 100), ((25, 12), 64, 50))
+
+
+def large_times(device):
+    """Device time (ms) of both entries of every ``riccati_large.cu``
+    instantiation of LARGE_TIMES, both types, and the cycles a step by stage
+    of the float64 ones at B=256 (batch-last), with the seconds those stage
+    clocks took (their ``nvcc`` runs and launches).  Uses only what every
+    tree of the port since that source came has, so that the same function
+    times an older tree's plan: ``python3 chip_smoke.py --large-times
+    ROOT``."""
+
+    from ilqr_tpu_torch.ops import _build, cuda_riccati
+
+    types = (torch.float32, torch.float64)
+    _build.build(sorted({cuda_riccati.library_and_symbol(n, m, dtype)[0]
+                         for (n, m), _, _ in LARGE_TIMES for dtype in types}))
+    out = {}
+    for (n, m), B, T in LARGE_TIMES:
+        for dtype in types:
+            bl = synthetic_models(n, m, B, T, 7 * n + m, device, dtype)
+            bf = tuple(x.movedim(-1, 0).contiguous() for x in bl)
+            reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
+            name = cuda_riccati.kernel_name(n, m, dtype)
+            out[f"{name}:B{B}_T{T}"] = dict(
+                batch_last=device_time(
+                    lambda: cuda_riccati.riccati_scan_cuda_bl(*bl, reg), 20),
+                batch_first=device_time(
+                    lambda: cuda_riccati.riccati_scan_cuda_batched(*bf, reg),
+                    20))
+            del bl, bf
+    t0 = time.perf_counter()
+    clocked = [((n, m), B, T) for (n, m), B, T in LARGE_TIMES if B == 256]
+    _build.build([f"{cuda_riccati.library_and_symbol(n, m, torch.float64)[0]}"
+                  "_clocks" for (n, m), _, _ in clocked])
+    stage = {}
+    for (n, m), B, T in clocked:
+        bl = synthetic_models(n, m, B, T, 7 * n + m, device, torch.float64)
+        reg = torch.logspace(-3, 0, B, dtype=torch.float64, device=device)
+        stage[cuda_riccati.kernel_name(n, m, torch.float64)] = (
+            cuda_riccati.riccati_stage_clocks(bl, reg))
+        del bl
+    return dict(times=out, f64_stage_cycles=stage,
+                f64_stage_clock_s=time.perf_counter() - t0)
+
+
 def phase_shapes(device, built):
     """The kernel at the shapes of NEW_SHAPES, built at first use: both
     entries, both types, on seeded inputs at B=256, T=100, against the plain
     version at the existing bars (``symmetrize`` off too, in float64), the
     two entries equal (``torch.equal``); the time beside the bound (logical
     bytes read and written once over 3.35 TB/s) and the plain version's, the
-    padded plan and its bytes, registers and spills, the copy path, the
-    ``nvcc`` seconds of the new libraries (``built``), the cycles a step by
-    stage of ``riccati_large.cu``'s float32 rows.  Then the hashes of the
+    padded plan and its bytes, registers and spills, the blocks resident
+    on an SM (``riccati_large.cu``), the copy path, the ``nvcc`` seconds of
+    the new libraries (``built``), the cycles a step by stage of
+    ``riccati_large.cu``'s float32 rows.  Then the hashes of the
     fixed instantiations' outputs.  Returns ``(batch-last rows, batch-first
     rows)`` for the ``kernels`` line."""
 
@@ -2376,6 +2452,8 @@ def phase_shapes(device, built):
             common = dict(
                 n=n, m=m, B=B, T=T, source=source, padded=[NP, MP],
                 plan_bytes=plan_bytes,
+                resident_blocks_per_sm=resident_blocks(_build, library,
+                                                       source),
                 ptxas=ptxas_summary(_build, [library]),
                 library=library,
                 nvcc_s=built.get(library), max_abs_err=max_abs,
@@ -2508,8 +2586,9 @@ def al_arm(phase, case, spec, budget_s, device):
     # The kernel on the local models of the first augmented problem
     # (multipliers 0, penalty mu0) at the rollout of zero controls: what its
     # first launch was handed.  A lane's batch-first step is not whole
-    # 16-byte rows at n=17 (riccati_large.cu copies a value at a time at any
-    # shape), so every launch copies per element.
+    # 16-byte rows at n=17, so riccati_wide.cu copies per element;
+    # riccati_large.cu copies each input's aligned superset in bulk (path
+    # "tma": the bulk-copy engine) from the 16-byte aligned inputs.
     n_aug, m = problem.state_dim + 1, problem.control_dim
     p = 2 * joints
     lanes = torch.arange(B, device=device)
@@ -2531,8 +2610,10 @@ def al_arm(phase, case, spec, budget_s, device):
                                          QN))
     assert m32[0].shape == (B, T, n_aug, n_aug), m32[0].shape
     rows = batch_first_rows(m32, n_aug, m, B, T, F32_REL_BOUND)
+    path = ("tma" if cuda_riccati.route(n_aug, m)[0] == "riccati_large"
+            else "per_element")
     for row in rows.values():
-        assert row["copy_path"] == "per_element", row["copy_path"]
+        assert row["copy_path"] == path, (row["copy_path"], path)
     del m32, As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN
     emit(phase=phase, B=B, T=T, dtype="float32",
          n_augmented=problem.state_dim + 1, m=problem.control_dim,
@@ -2739,6 +2820,18 @@ def main():
             sys.path.insert(0, sys.argv[2])
         print(json.dumps({"hashes": instantiation_hashes(
             torch.device("cuda", torch.cuda.current_device()))}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--large-times"]:
+        # python3 chip_smoke.py --large-times [ROOT]: the device times of
+        # riccati_large.cu's instantiations only, of the port in ROOT (an
+        # older tree unpacked beside this one) or of this one.
+        if len(sys.argv) > 2:
+            sys.path.insert(0, sys.argv[2])
+        import ilqr_tpu_torch
+
+        print(json.dumps({"large_times": large_times(
+            torch.device("cuda", torch.cuda.current_device())),
+            "package": ilqr_tpu_torch.__file__}), flush=True)
         return 0
     t_start = time.perf_counter()
 

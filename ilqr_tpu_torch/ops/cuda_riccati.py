@@ -113,8 +113,10 @@ BATCH_LAST, BATCH_FIRST = 0, 1
 
 # The copy paths a launcher reports: riccati_wide.cu takes TMA where every
 # input allows it, else copies per element; riccati.cu copies a value at a
-# time batch-last and 16 bytes at a time batch-first; riccati_large.cu a
-# value at a time.
+# time batch-last and 16 bytes at a time batch-first; riccati_large.cu one
+# 1-D bulk copy (the TMA engine, path 1) an input and step batch-first (it
+# refuses inputs that do not start on 16 bytes: as_kernel_input aligns
+# them), a value at a time batch-last.
 COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16"}
 
 # Kernel name, layout and copy path of the last launch (either entry, or
@@ -364,8 +366,10 @@ STAGES = {"riccati": ("copy_issue_wait", "smem_load", "gains", "value"),
           # repack of the next step).
           "riccati_wide": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd", "dv",
                            "P_repack_wait", "copy_issue", "value"),
-          "riccati_large": ("BtS_SA", "G_H_P", "cholesky", "solves", "W_Hd",
-                            "value_wait")}
+          # Seen from thread 0, a solver: stage 3 split by the solver
+          # warps' parts, then the wait for warps 2-7 (P, the repack).
+          "riccati_large": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd",
+                            "P_repack_wait", "value")}
 
 
 def riccati_stage_clocks(arrays, reg, layout=BATCH_LAST):

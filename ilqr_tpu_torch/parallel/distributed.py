@@ -41,17 +41,20 @@ LAUNCHER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
-                         initialization_timeout: Optional[int] = None) -> None:
+                         initialization_timeout: Optional[int] = None,
+                         device=None) -> None:
     """Initialize the default process group (a no-op for one process).
 
     With ``coordinator_address`` (``host:port``, rank 0 listens there) the
     group is joined at ``tcp://coordinator_address`` as rank ``process_id``
     of ``num_processes``; without it, at ``env://`` when a launcher's
     variables (:data:`LAUNCHER_ENV`) are set.  The backend is the one of the
-    rank's device (``mesh.backend_for(mesh.default_device(rank))``: NCCL
-    where there is a card, Gloo on the CPU), so that the scenario mesh runs
-    its collectives on this group.  ``initialization_timeout`` (seconds)
-    bounds the rendezvous and later collectives.
+    rank's device (``mesh.backend_for(mesh.default_device(rank, device))``):
+    NCCL on the rank's card by default, Gloo with ``device="cpu"``; with no
+    card and no ``device`` it raises, before any rendezvous (no silent
+    fall-back to the CPU).  The scenario mesh then runs its collectives on
+    this group.  ``initialization_timeout`` (seconds) bounds the rendezvous
+    and later collectives.
 
     Failure policy, the JAX package's: ``num_processes <= 1`` does nothing;
     when the caller asked for a multi-process run (a coordinator address or
@@ -76,37 +79,50 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                 "initialize_multihost: a coordinator_address needs "
                 "num_processes and process_id")
         dist.init_process_group(
-            backend_for(default_device(process_id)),
+            backend_for(default_device(process_id, device)),
             init_method=f"tcp://{coordinator_address}",
             world_size=num_processes, rank=process_id, **kwargs)
         return
 
-    multi_requested = num_processes is not None and num_processes > 1
-    missing = [v for v in LAUNCHER_ENV if v not in os.environ]
     try:
+        missing = [v for v in LAUNCHER_ENV if v not in os.environ]
         if missing:
             raise RuntimeError(f"no cluster found: {missing} not set")
         rank = int(os.environ["RANK"])
-        dist.init_process_group(backend_for(default_device(rank)),
-                                init_method="env://", **kwargs)
     except (RuntimeError, ValueError) as e:
-        if multi_requested:
-            raise RuntimeError(
-                f"multi-process initialization failed for num_processes="
-                f"{num_processes}; refusing to silently run single-process"
-            ) from e
-        import warnings
+        _stay_single_process(e, num_processes)
+        return
+    # Outside the fall-back: no card and no device raises whatever the
+    # cluster.
+    backend = backend_for(default_device(rank, device))
+    try:
+        dist.init_process_group(backend, init_method="env://", **kwargs)
+    except (RuntimeError, ValueError) as e:
+        _stay_single_process(e, num_processes)
 
-        warnings.warn(
-            "torch.distributed initialization found no cluster; continuing "
-            f"single-process: {e!r}", stacklevel=2)
+
+def _stay_single_process(error, num_processes) -> None:
+    """No cluster found on the automatic path: raise where the caller asked
+    for several processes, else warn and stay single-process."""
+
+    if num_processes is not None and num_processes > 1:
+        raise RuntimeError(
+            f"multi-process initialization failed for num_processes="
+            f"{num_processes}; refusing to silently run single-process"
+        ) from error
+    import warnings
+
+    warnings.warn(
+        "torch.distributed initialization found no cluster; continuing "
+        f"single-process: {error!r}", stacklevel=3)
 
 
-def global_scenario_mesh() -> ScenarioMesh:
+def global_scenario_mesh(devices=None) -> ScenarioMesh:
     """A 1-D mesh over every rank of the process group, one device a rank
-    (collective: every rank calls it)."""
+    (``devices[rank]``, default the rank's card; collective: every rank
+    calls it)."""
 
-    return make_scenario_mesh()
+    return make_scenario_mesh(devices=devices)
 
 
 def _world() -> tuple:

@@ -56,13 +56,21 @@ def backend_for(device: torch.device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def default_device(rank: int) -> torch.device:
-    """The device of ``rank`` when none is given: the card of the rank's
-    place on its host where there are cards, else the CPU."""
+def default_device(rank: int, device=None) -> torch.device:
+    """The device of ``rank``: ``device`` where one is given, else the card
+    of the rank's place on its host.  Raises when no card is present and no
+    device was asked for, as ``precision.resolve_device`` does: there is no
+    silent fall-back to the CPU."""
 
-    if torch.cuda.is_available():
-        return torch.device("cuda", rank % torch.cuda.device_count())
-    return torch.device("cpu")
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ilqr_tpu_torch runs a rank on a CUDA device by default and none "
+            "is available; pass devices=['cpu'] * world_size (a mesh) or "
+            "device='cpu' (initialize_multihost) to run the ranks on the CPU "
+            "with Gloo")
+    return torch.device("cuda", rank % torch.cuda.device_count())
 
 
 def make_rank_mesh(n_ranks: Optional[int], devices: Optional[Sequence],
@@ -81,12 +89,9 @@ def make_rank_mesh(n_ranks: Optional[int], devices: Optional[Sequence],
         raise ValueError(
             f"a mesh of {n_ranks} devices needs {n_ranks} ranks (one device "
             f"a rank); the process group has {world}")
-    if devices is not None:
-        if len(devices) < world:
-            raise ValueError(f"{len(devices)} devices for {world} ranks")
-        device = torch.device(devices[rank])
-    else:
-        device = default_device(rank)
+    if devices is not None and len(devices) < world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    device = default_device(rank, None if devices is None else devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = backend_for(device)
@@ -104,8 +109,8 @@ def make_scenario_mesh(n_devices: Optional[int] = None,
                        devices=None) -> ScenarioMesh:
     """A 1-D mesh over the ``scenarios`` axis: every rank of the default
     process group, one device a rank (``devices[rank]``, default: the rank's
-    card, or the CPU where there is none).  Collective: every rank calls
-    it."""
+    card; with no card, ``devices`` is required: ``["cpu"] * world_size``
+    for Gloo ranks on the CPU).  Collective: every rank calls it."""
 
     return make_rank_mesh(n_devices, devices, SCENARIO_AXIS)
 

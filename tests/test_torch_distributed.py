@@ -5,7 +5,9 @@
   coordinator that nobody serves (a free port on 127.0.0.1) raises within a
   short ``initialization_timeout``, and never runs single-process; the
   automatic path with no cluster in the environment warns and stays
-  single-process.
+  single-process; with no card and no ``device`` it raises before any
+  rendezvous (no silent fall-back to the CPU), so the Gloo ranks here pass
+  ``device="cpu"``.
 * In a real group of two Gloo ranks joined through ``initialize_multihost``
   (one group of processes, ``tests/torch_mp.py``): the global mesh spans
   both ranks, ``host_local_batch`` halves the batch, ``per_host_keys`` gives
@@ -38,12 +40,31 @@ def test_unreachable_coordinator_raises():
     with pytest.raises(RuntimeError) as err:
         d.initialize_multihost(coordinator_address=f"127.0.0.1:{d.free_local_port()}",
                                num_processes=2, process_id=1,
-                               initialization_timeout=2)
+                               initialization_timeout=2, device="cpu")
     assert time.monotonic() - t0 < 30, err.value
     assert not dist.is_initialized()
     with pytest.raises(ValueError, match="process_id"):
         d.initialize_multihost(coordinator_address="127.0.0.1:1",
                                num_processes=2)
+
+
+def test_no_card_and_no_device_raises_before_the_rendezvous(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t0 = time.monotonic()
+    # A coordinator nobody serves: the device is resolved first, so the
+    # call raises at once instead of waiting out the rendezvous.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        d.initialize_multihost(
+            coordinator_address=f"127.0.0.1:{d.free_local_port()}",
+            num_processes=2, process_id=0, initialization_timeout=60)
+    assert time.monotonic() - t0 < 30
+    assert not dist.is_initialized()
+    # The launcher's variables set: the same, not a warning.
+    for var, value in zip(d.LAUNCHER_ENV, ("127.0.0.1", "1", "2", "0")):
+        monkeypatch.setenv(var, value)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        d.initialize_multihost()
+    assert not dist.is_initialized()
 
 
 def test_automatic_path_without_a_cluster(monkeypatch):

@@ -132,3 +132,24 @@ def test_a_mesh_needs_a_process_group():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="init_process_group"):
         port_mesh.make_scenario_mesh()
+
+
+def test_no_card_and_no_devices_raises_on_a_gloo_group(monkeypatch):
+    import torch.distributed as dist
+
+    from ilqr_tpu_torch.parallel.distributed import free_local_port
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{free_local_port()}",
+                            world_size=1, rank=0)
+    try:
+        # No silent fall-back to the CPU: the caller names it.
+        with pytest.raises(RuntimeError, match=r"devices=\['cpu'\]"):
+            port_mesh.make_scenario_mesh()
+        mesh = port_mesh.make_scenario_mesh(devices=["cpu"])
+        assert mesh.device == torch.device("cpu") and mesh.size == 1
+        assert dist.get_backend(mesh.group) == "gloo"
+    finally:
+        dist.destroy_process_group()

@@ -145,8 +145,8 @@ def task_distributed(rank, world, port):
 
     d.initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
                            num_processes=world, process_id=rank,
-                           initialization_timeout=60)
-    mesh = d.global_scenario_mesh()
+                           initialization_timeout=60, device="cpu")
+    mesh = d.global_scenario_mesh(devices=["cpu"] * world)
     draws = [torch.rand(4, generator=d.per_host_keys(seed)).numpy()
              for seed in (7, 7, 8)]
     local = torch.arange(4 * rank, 4 * rank + 4, dtype=torch.float64)
