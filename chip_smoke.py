@@ -66,7 +66,7 @@ Phases, one JSON line each:
                 ``bench.py`` takes them) with the ``(16, 8)`` kernel.  The
                 solve runs at the reference's T=1000 if five passes (ten
                 times the pass timed at T=100) fit the budget, else at T=100
-                with ``max_iter=3``, and stops at a chunk boundary once half the
+                with ``max_iter=2`` (printed), and stops at a chunk boundary once half the
                 budget is spent.  Counts are set to 0 before and read after;
                 then the same passes with ``backward_backend="scan"``.  The
                 two backends are held to each other after ONE pass from the
@@ -79,10 +79,21 @@ Phases, one JSON line each:
 9. ``rbd_6dof``     the 6-DoF arm on a floating base (n=24, m=12), B=64, T=50,
                 float32, ``make_batch_solver(engine="fused")`` with the
                 ``(24, 12)`` kernel (``max_iter=15``, fewer if the first
-                pass says that would not fit the budget), then a short
+                pass says that would not fit the budget, at least 1; the cut
+                printed), then a 1-pass
                 float64 solve and the scan backend, held as in ``rbd_solve``
                 (one pass tightly, the cut solve by median lane and cost).
-10. ``batched_entry``  the kernel's batch-first entry
+10. ``rbd_dual``     the free-flying dual arm (two 6-DoF arms on one
+                floating base, n=36, m=18), B=64, T=50, float32,
+                ``make_batch_solver(engine="fused")`` with the ``(36, 18)``
+                kernel in ``riccati_xl.cu``: the kernel against its plain
+                version on the arm's local models and timed beside its
+                bound, then the solve (``max_iter`` cut from 15 by its
+                40 s budget, printed; the launches set to 0 before and read
+                after) and its scan twin: status equal on every lane, the
+                median and worst lane of ``us`` and the worst cost within
+                the 6-DoF bars.
+11. ``batched_entry``  the kernel's batch-first entry
                 ``riccati_scan_cuda_batched`` at every instantiation ((4, 2)
                 B=4096 T=100, (16, 8) B=256 T=100, (24, 12) B=64 T=50, both
                 types): equal (``torch.equal``) to the batch-last entry on
@@ -95,47 +106,47 @@ Phases, one JSON line each:
                 runs past B), (16, 8) B=1 on the per-element path, held the
                 same way (float64 elementwise), each launch's copy path
                 printed as its library reports it.
-11. ``vmap_solve``  the third path: the per-scenario solver on a leading
+12. ``vmap_solve``  the third path: the per-scenario solver on a leading
                 batch axis, ``make_batch_solver(engine="vmap")``, at phase
                 ``solve``'s width and config; the batch-first launches are
                 set to 0 before and read after (one a pass); held against
                 the fused solve of phase ``solve``, timed phase by phase,
                 and in float64 at B=8, T=24 card against CPU.
-12. ``single``  one scenario, no batch axis: the float64 ``solve`` of the
+13. ``single``  one scenario, no batch axis: the float64 ``solve`` of the
                 oracle's golden ``tests/fixtures/two_link_T100.npz`` on the
                 card (``|u - u_ref|_inf < 1e-6``, the same iterations and
                 cost), and the latency of one float32 solve at T=100.
-13. ``mpc``, ``mpc_batch``  ``mpc_run`` (one scenario, H=50) and
+14. ``mpc``, ``mpc_batch``  ``mpc_run`` (one scenario, H=50) and
                 ``batch_mpc_run`` (B=1024, H=50, with the kernel, so every
                 iteration of every replan launches the batch-first entry);
                 ``n_steps`` cut from 50 to MPC_BUDGET_S, the cut printed.
-14. ``resilience``  phase ``solve``'s chunked solve (``iter_chunk=2``)
+15. ``resilience``  phase ``solve``'s chunked solve (``iter_chunk=2``)
                 against itself retried after a ``torch.AcceleratorError``
                 injected before chunk 2 (``snapshot_every=1``) and resumed by
                 a fresh solver from the ``snapshot_path`` file a kill before
                 chunk 2 left: ``torch.equal`` in ``us``, ``status`` and
                 ``iterations``, the file gone after; again with compaction.
                 (``rbd_solve`` runs ``bench.py``'s ``snapshot_every=4``.)
-15. ``mpc_chunked``  ``batch_mpc_run_chunked`` (B=1024, H=50, the kernel),
+16. ``mpc_chunked``  ``batch_mpc_run_chunked`` (B=1024, H=50, the kernel),
                 ``n_steps`` cut to a budget, stopped after the first chunk
                 and resumed from its checkpoint: equal to ``batch_mpc_run``.
-16. ``long_horizon``  ``bench.py --config long_horizon`` (B=256, T=1000)
+17. ``long_horizon``  ``bench.py --config long_horizon`` (B=256, T=1000)
                 through ``engine="vmap"`` with ``scan``, ``pallas`` and
                 ``associative``, ``max_iter`` cut to a budget; the float64
                 associative backward pass (B=8, T=200) card against CPU.
-17. ``parallel_alpha``  phase ``solve``'s fused solve with
+18. ``parallel_alpha``  phase ``solve``'s fused solve with
                 ``parallel_alpha_block`` 4 and 8: the sequential ladder's
                 status, iterations and alpha on every lane, ``us`` equal
                 (or within 1e-6 of max|us|); ladder seconds and rungs a pass.
-18. ``al``      ``al_solve`` of the 2-link in a control box with a velocity
+19. ``al``      ``al_solve`` of the 2-link in a control box with a velocity
                 cap (B=1024, T=100, float32, the kernel at ``(5, 2)``: the
                 state carries the step index); the largest violation at or
                 below the target; float64 B=4 card against CPU; the
                 ``(5, 2)`` kernel against its plain version, timed.
-19. ``trace_profile``  ``solve_with_trace`` of one float64 scenario, one
+20. ``trace_profile``  ``solve_with_trace`` of one float64 scenario, one
                 fused pass under ``device_trace`` (the trace names the
                 Riccati kernel) and ``PhaseTimer``'s summary.
-20. ``shapes``  the kernel at shapes built at first use (``build`` also
+21. ``shapes``  the kernel at shapes built at first use (``build`` also
                 starts their ``nvcc``, one library a shape and type):
                 ``(17, 8)`` (padded to (24, 8) in ``riccati_wide.cu``), and
                 check-only rows that no path launches: ``(7, 3)`` (padded
@@ -144,36 +155,42 @@ Phases, one JSON line each:
                 past the padded (24, 12), in ``riccati_large.cu``:
                 ``(25, 12)`` (launched by ``al_6dof``), ``(32, 16)`` (its
                 ceiling), ``(29, 5)`` and ``(10, 13)`` (more controls than
-                states); both entries, both types, seeded
+                states); past ``(32, 16)``, in ``riccati_xl.cu``: ``(36,
+                18)`` (launched by ``rbd_dual``) and ``(64, 32)`` (its
+                ceiling) in both types, ``(37, 18)``, ``(33, 16)`` and
+                ``(20, 32)`` in float32; both entries, seeded
                 inputs at B=256, T=100, against the plain version at the
                 bars of ``kernels``; time, bound, plain time, padded plan and
                 the bytes the source reports, registers and spills, copy
-                path, nvcc seconds, and for ``riccati_large.cu`` the blocks
-                resident on an SM and the cycles a step by stage of its
-                float32 rows (its stage-clock builds; float64's are in
-                ``--large-times``).  Then a
-                sha256 of the outputs of every fixed instantiation on
-                seeded inputs (:func:`instantiation_hashes`, which runs on
-                an older tree of the port too: equal hashes show their bits
-                did not move).
-21. ``al_rbd``  ``al_solve`` of the RBD 2-DoF arm with a joint-velocity cap
+                path, nvcc seconds, and for ``riccati_large.cu`` and
+                ``riccati_xl.cu`` the blocks resident on an SM and the
+                cycles a step by stage of their float32 rows (their
+                stage-clock builds; ``riccati_large.cu``'s float64 ones are
+                in ``--large-times``).  Then a sha256 of the outputs of
+                every fixed instantiation and of ``riccati_large.cu`` at
+                ``(25, 12)`` and ``(32, 16)`` on seeded inputs
+                (:func:`instantiation_hashes`, which runs on an older tree
+                of the port too: equal hashes show their bits did not
+                move).
+22. ``al_rbd``  ``al_solve`` of the RBD 2-DoF arm with a joint-velocity cap
                 (n=17 with the index, m=8), B=64, T=50, float32, the kernel
-                at ``(17, 8)``, ``max_outer`` cut to a budget (printed),
+                at ``(17, 8)``, inner solves of 3 passes (cut from 5,
+                printed), ``max_outer`` cut to a budget (printed),
                 against the same call with ``"scan"``; the ``(17, 8)``
                 kernel against its plain version on the local models of its
                 first launch, timed.
-22. ``al_6dof``  the same for the 6-DoF arm (n=25 with the index, m=12),
+23. ``al_6dof``  the same for the 6-DoF arm (n=25 with the index, m=12),
                 B=64, T=50, float32: the kernel at ``(25, 12)``, in
                 ``riccati_large.cu``.
-23. ``sharded``  ``sharded_batch_solve`` on a world-size-1 NCCL group at the
+24. ``sharded``  ``sharded_batch_solve`` on a world-size-1 NCCL group at the
                 main path's width (B=4096, T=100, float32, the kernel):
                 ``torch.equal`` to ``make_batch_solver(engine="vmap")``, the
                 reduced metrics equal to ``batch_metrics``' sums.
-24. ``entry``   ``entry.entry()`` once on the card and
+25. ``entry``   ``entry.entry()`` once on the card and
                 ``entry.dryrun_multichip(1)`` (one NCCL rank, a process of
                 its own); then one ``pipeline`` line saying the two-stage
                 pipeline is not run here (one card; it needs two ranks).
-25. ``examples``  ``examples/torch_two_link_open_loop.py``,
+26. ``examples``  ``examples/torch_two_link_open_loop.py``,
                 ``torch_two_link_swingup.py`` and ``torch_rbd_arm.py``, each
                 ``main`` at a small ``--steps`` on the card: their printed
                 lines, finite results on the card.
@@ -683,18 +700,24 @@ def phase_solve(problem, config, device):
 
 WIDE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_wide.cu"
 LARGE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_large.cu"
+XL_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_xl.cu"
 # cuda_riccati.route's source -> its file.
 SOURCE_FILES = {"riccati": KERNEL_SOURCE, "riccati_wide": WIDE_SOURCE,
-                "riccati_large": LARGE_SOURCE}
+                "riccati_large": LARGE_SOURCE, "riccati_xl": XL_SOURCE}
+# The sources built only as instantiations at first use, one lane a block:
+# their builds report the blocks resident on an SM, and their float32 rows
+# of phase shapes the cycles a step by stage.
+ONE_LANE_A_BLOCK = ("riccati_large", "riccati_xl")
 # snapshot_every: bench.py --config rbd's default (bench.py:388).
-# max_iter_cut: the passes of the cut solve, 3, cut from 15 (to 10 with
+# max_iter_cut: the passes of the cut solve, 2, cut from 15 (to 10 with
 # the kernel at any shape and the multi-device entry points, to 5 with
 # al_6dof and the examples, to 3 when a host whose cores are shared ran the
-# script in 969 s) so that the script fits its time (the width is
-# unchanged).
-RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=3, max_iter=100,
+# script in 969 s, to 2 when rbd_dual and the riccati_xl.cu rows of shapes
+# took it to 1015 s on an H100) so that the script fits its time (the width
+# is unchanged).
+RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=2, max_iter=100,
            snapshot_every=4)
-SIX = dict(B=64, T=50, max_iter=15)
+SIX = dict(B=64, T=50, max_iter=15, min_iter=1)
 # Seconds the RBD solve and its scan twin may take together: decides T, and
 # stops the solve at a chunk boundary once half of it is spent.
 RBD_BUDGET_S = 150.0
@@ -703,8 +726,17 @@ RBD_BUDGET_S = 150.0
 FULL_DEPTH_RUNGS = 3
 # The same for the 6-DoF solve, its float64 run and its scan twin: caps
 # max_iter from the time of the first pass (cut from 100 s with al_6dof, to
-# 40 s with RBD["max_iter_cut"], for the same reason).
+# 40 s with RBD["max_iter_cut"], for the same reason); at least min_iter
+# passes, and min_iter in float64 (3 until rbd_dual came, for the same
+# reason).  The first pass is held tightly against the scan backend on its
+# own (compare_first_pass), whatever the cut.
 SIX_BUDGET_S = 40.0
+# The free-flying dual arm (n=36, m=18: the kernel in riccati_xl.cu),
+# scripts/bench_6dof.py's B and T; its solve and scan twin may take
+# DUAL_BUDGET_S together, which caps max_iter from the time of the first
+# pass (at least DUAL["min_iter"]).
+DUAL = dict(B=64, T=50, max_iter=15, min_iter=1)
+DUAL_BUDGET_S = 40.0
 
 # Float32 bound of the lane-spread kernel against the plain version,
 # relative to each output's largest magnitude.  The reasons are those of
@@ -748,12 +780,19 @@ F64_PARITY_REL_BOUND_RBD = 1e-9
 def rbd_case(six_dof):
     """``(problem, nominal state, per-component noise)`` of the reference's
     2-DoF arm (``bench.py --config rbd``: pose-only noise 0.05, attitude
-    0.4 of it) or the 6-DoF arm (``scripts/bench_6dof.py``: 0.02 on every
-    component)."""
+    0.4 of it), the 6-DoF arm (``scripts/bench_6dof.py``: 0.02 on every
+    component) or, ``six_dof="dual"``, the free-flying dual arm (two 6-DoF
+    arms on one base: the 6-DoF case extended to 36 components)."""
 
-    from ilqr_tpu_torch.models.rbd import (SIX_DOF_ARM_URDF,
+    from ilqr_tpu_torch.models.rbd import (DUAL_6DOF_ARM_URDF,
+                                           SIX_DOF_ARM_URDF,
                                            make_rbd_arm_problem)
 
+    if six_dof == "dual":
+        problem = make_rbd_arm_problem(
+            target_pose=[0.0, 0.0, 0.0, 1.0, 1.0, 1.0] + [0.3] * 12,
+            urdf_path=DUAL_6DOF_ARM_URDF)
+        return problem, [0.0, 0.0, 1.0] + [0.0] * 33, [0.02] * 36
     if six_dof:
         problem = make_rbd_arm_problem(
             target_pose=[0.0, 0.0, 0.0, 1.0, 1.0, 1.0] + [0.3] * 6,
@@ -1035,6 +1074,11 @@ def phase_rbd_solve(case, device, one_pass_cut):
     if 2 * 5 * pass_s <= RBD_BUDGET_S:
         T = RBD["T"]
         max_iter = min(RBD["max_iter"], int(RBD_BUDGET_S / (2 * pass_s)))
+    else:
+        print(f"chip_smoke: rbd_solve: T cut from {RBD['T']} to {T} and "
+              f"max_iter from {RBD['max_iter']} to {max_iter}: five passes at "
+              f"T={RBD['T']} and their scan twins do not fit the "
+              f"{RBD_BUDGET_S} s budget", file=sys.stderr, flush=True)
     x0s, us0 = rbd_inputs(case, B, T, torch.float32, 0, device)
     xs_bl = batched.rollout_bl(problem, x0s.T.contiguous(),
                                us0.movedim(0, -1).contiguous())
@@ -1169,7 +1213,7 @@ def phase_rbd_6dof(case, device):
     # A later pass climbs more rungs than the first: count it 2.5 times, and
     # the float64 run and the scan twin as 1.2 more solves.
     first = time_one_pass(problem, rbd_config(SIX["max_iter"], T), x0s, us0)
-    max_iter = max(3, min(SIX["max_iter"], int(
+    max_iter = max(SIX["min_iter"], min(SIX["max_iter"], int(
         SIX_BUDGET_S / (2.2 * 2.5 * sum(first.values())))))
     cfg = rbd_config(max_iter, T)
     if max_iter < SIX["max_iter"]:
@@ -1191,7 +1235,7 @@ def phase_rbd_6dof(case, device):
 
     # The same path in float64, a few passes: the other instantiation.
     cuda_riccati.reset_launch_counts()
-    res64, solve64_s = run(cfg.replace(max_iter=3), x0s.double(),
+    res64, solve64_s = run(cfg.replace(max_iter=SIX["min_iter"]), x0s.double(),
                            us0.double())
     counts64 = dict(cuda_riccati.launch_counts)
     passes64 = int(res64.iterations.max())
@@ -1217,6 +1261,110 @@ def phase_rbd_6dof(case, device):
     return {name32: counts[name32], name64: counts64[name64]}
 
 
+def phase_rbd_dual(case, device):
+    """The free-flying dual arm (n=36, m=18), B=64, T=50, float32, through
+    ``make_batch_solver(engine="fused")`` with ``backward_backend="pallas"``:
+    every pass launches the batch-last entry of the ``(36, 18)``
+    instantiation, in ``riccati_xl.cu``.  First the kernel on the local
+    models of an iterate rolled out under small random controls, against
+    the plain version (F32_REL_BOUND_RBD of each output's largest
+    magnitude), timed beside its bound.  Then the solve, ``max_iter`` cut
+    from the first pass's time to DUAL_BUDGET_S (printed), the launches set
+    to 0 before and read after; and the same solve with ``"scan"``: status
+    equal on every lane, ``us`` of the lanes on the same iteration count
+    within the 6-DoF bars (median lane F32_SOLVE_MEDIAN_BOUND_RBD, worst
+    lane and worst cost F32_SOLVE_COST_BOUND_RBD).  Returns ``({kernel:
+    launches}, the kernel's row)``."""
+
+    from ilqr_tpu_torch import batched
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.ops.cuda_riccati import (riccati_scan_cuda_bl,
+                                                 riccati_scan_plain_bl)
+    from ilqr_tpu_torch.parallel.batching import make_batch_solver
+
+    problem = case[0]
+    n, m = problem.state_dim, problem.control_dim
+    B, T = DUAL["B"], DUAL["T"]
+    name = cuda_riccati.kernel_name(n, m, torch.float32)
+    assert cuda_riccati.route(n, m) == ("riccati_xl", n, m)
+
+    models = rbd_local_models(case, B, T, torch.float32, 90, device)[0]
+    reg = torch.full((B,), 1.0, dtype=torch.float32, device=device)
+    kern = riccati_scan_cuda_bl(*models, reg)
+    path = last_copy_path()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    plain = riccati_scan_plain_bl(*models, reg)
+    b.record()
+    torch.cuda.synchronize()
+    max_abs, max_rel = hold(kern, plain, F32_REL_BOUND_RBD)
+    bound_ms, bound_by = riccati_bound_ms(T, B, torch.float32, n, m)
+    row = dict(B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel,
+               rel_bound=F32_REL_BOUND_RBD, copy_path=path,
+               ms=device_time(lambda: riccati_scan_cuda_bl(*models, reg), 30),
+               call_ms=sync_time(lambda: riccati_scan_cuda_bl(*models, reg),
+                                 30),
+               plain_ms=a.elapsed_time(b), bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    del models, kern, plain
+
+    x0s, us0 = rbd_inputs(case, B, T, torch.float32, 81, device)
+    us_bl = us0.movedim(0, -1).contiguous()
+    cost0 = batched.total_cost_bl(
+        problem, batched.rollout_bl(problem, x0s.T.contiguous(), us_bl),
+        us_bl)
+
+    def run(cfg):
+        solve_fn = make_batch_solver(problem, cfg, engine="fused",
+                                     device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_fn(x0s, us0)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # A later pass climbs more rungs than the first: count it 2.5 times,
+    # and the scan twin as one more solve.
+    first = time_one_pass(problem, rbd_config(DUAL["max_iter"], T), x0s, us0)
+    max_iter = max(DUAL["min_iter"], min(DUAL["max_iter"], int(
+        DUAL_BUDGET_S / (2 * 2.5 * sum(first.values())))))
+    if max_iter < DUAL["max_iter"]:
+        print(f"chip_smoke: rbd_dual: max_iter cut from {DUAL['max_iter']} "
+              f"to {max_iter} by the {DUAL_BUDGET_S} s budget",
+              file=sys.stderr, flush=True)
+    cfg = rbd_config(max_iter, T)
+
+    cuda_riccati.reset_launch_counts()
+    with phase_clock() as spent:
+        res, solve_s = run(cfg)
+    counts = dict(cuda_riccati.launch_counts)
+    passes = int(res.iterations.max())
+    by_status = check_rbd_result(res, cost0, B, T, n, m, torch.float32)
+    assert counts[name] == passes >= 1, (counts, passes)
+    assert sum(counts.values()) == passes, counts
+
+    cuda_riccati.reset_launch_counts()
+    ref, scan_s = run(cfg.replace(backward_backend="scan"))
+    assert cuda_riccati.launches() == 0
+    check_rbd_result(ref, cost0, B, T, n, m, torch.float32)
+    assert torch.equal(res.status, ref.status), (res.status, ref.status)
+    scan = compare_backends(res, ref, F32_SOLVE_COST_BOUND_RBD)
+
+    emit(phase="rbd_dual", B=B, T=T, n=n, m=m, dtype="float32",
+         source=XL_SOURCE, max_iter=max_iter,
+         max_iter_config=DUAL["max_iter"], budget_s=DUAL_BUDGET_S,
+         first_pass_s=first, passes=passes, launches=counts,
+         solve_s=solve_s, lanes_by_status=by_status,
+         mean_iterations=float(res.iterations.float().mean()),
+         mean_cost_ratio=float((res.cost / cost0).mean()),
+         per_pass_s={k: v / passes for k, v in spent.items()},
+         per_pass_other_s=(solve_s - sum(spent.values())) / passes,
+         kernel_at_main_path_shapes={name: row},
+         scan=dict(scan, solve_s=scan_s, status_equal=True))
+    return {name: counts[name]}, {name: row}
+
+
 # ---------------------------------------------------------------------------
 # The third path: the per-scenario solver on leading batch axes (where the
 # JAX package vmaps it), which reaches the kernel's batch-first entry.
@@ -1239,7 +1387,8 @@ VMAP_BUDGET_S = 60.0
 # bench.py's MPC shapes: --config mpc (one scenario) and --config mpc_batch.
 MPC = dict(B=1024, H=50, n_steps=50)
 # Seconds each MPC run may take; n_steps is cut to fit (and the cut printed).
-MPC_BUDGET_S = 30.0
+# Cut from 30 s with rbd_dual, so that the script fits its time.
+MPC_BUDGET_S = 20.0
 # Float64 `us` of the per-scenario solve, card (kernel) against CPU (plain
 # version), relative to max|us|.
 F64_VMAP_PARITY_REL_BOUND = 1e-10
@@ -1574,7 +1723,7 @@ def phase_mpc(problem, device):
 # Files the new phases write (git-ignored, inside the checkout).
 SCRATCH = "build/chip_smoke"
 MPC_CHUNKED = dict(B=1024, H=50, step_chunk=2)
-MPC_CHUNKED_BUDGET_S = 30.0
+MPC_CHUNKED_BUDGET_S = 20.0
 # bench.py --config long_horizon: B=256, T=1000, max_iter=15, three backends.
 LONG = dict(B=256, T=1000, max_iter=15)
 # Seconds the three long-horizon solves may take together; caps max_iter.
@@ -2245,26 +2394,41 @@ def phase_trace_profile(problem, device):
 # the 6-DoF arm with the index coordinate (25, 12), launched by phase
 # al_6dof, the plan's ceiling (32, 16), an odd shape, (29, 5), and more
 # controls than states, (10, 13).
+# Past (32, 16), riccati_xl.cu: the free-flying dual arm (36, 18), launched
+# by phase rbd_dual, and the plan's ceiling (64, 32), both types; float32
+# only, the dual arm with the index coordinate (37, 18), the first shape
+# past (32, 16), (33, 16), and more controls than states at the ceiling's
+# m, (20, 32).
 NEW_SHAPES = ((17, 8), (7, 3), (6, 11), (3, 1), (5, 5), (25, 12), (32, 16),
-              (29, 5), (10, 13))
+              (29, 5), (10, 13), (36, 18), (64, 32), (37, 18), (33, 16),
+              (20, 32))
+F32_ONLY_SHAPES = ((37, 18), (33, 16), (20, 32))
 CHECK_ONLY_SHAPES = ((7, 3), (6, 11), (3, 1), (5, 5), (32, 16), (29, 5),
-                     (10, 13))
-SHAPES = dict(B=256, T=100)
+                     (10, 13), (64, 32), (37, 18), (33, 16), (20, 32))
+# The rows at m = 32 run at T_m32: there the plain version takes about 22 s
+# a call at T=100 on an H100 (the cut is printed).
+SHAPES = dict(B=256, T=100, T_m32=25)
 # The fixed instantiations whose outputs are hashed, on seeded inputs of
 # this size: the same hashes on the tree before the kernel learned to pad
-# show that their bits did not move.
+# show that their bits did not move.  With them, riccati_large.cu's al_6dof
+# shape and its ceiling (kernel_name's instantiations), unchanged since
+# that source's redesign.
 HASH_SHAPES = ((4, 2), (5, 2), (16, 8), (24, 12))
+LARGE_HASH_SHAPES = ((25, 12), (32, 16))
 HASH = dict(B=64, T=50, seed=123)
 # al_solve of an arm with a joint-velocity cap, float32, through the
-# per-scenario engine: inner solves of at most 5 passes with a 4-rung ladder
+# per-scenario engine: inner solves of at most 3 passes (cut from
+# AL_ARM_INNER_UNCUT with rbd_dual, so that the script fits its time; the
+# cut is printed) with a 4-rung ladder
 # and Tassa regularization (rbd_config), max_outer cut so that the kernel run
 # and its scan twin fit AL_ARM_BUDGET_S.  Phase al_rbd runs it on the RBD
 # 2-DoF arm (the kernel at (17, 8)), phase al_6dof on the 6-DoF arm
 # (scripts/bench_6dof.py's B and T; the kernel at (25, 12)), where one outer
 # iteration takes about half the budget on an H100 (the phase prints it), so
 # max_outer is cut to 1.
-AL_ARM = dict(B=64, T=50, v_max=2.0, max_iter=5, max_backtracks=4,
+AL_ARM = dict(B=64, T=50, v_max=2.0, max_iter=3, max_backtracks=4,
               max_outer=10)
+AL_ARM_INNER_UNCUT = 5
 AL_ARM_BUDGET_S = 60.0
 # The examples on the card, each at a small --steps (the defaults, 900 and
 # 1000 steps with 40 and 50 iterations, are minutes of host-bound work).
@@ -2282,10 +2446,21 @@ PIPELINE_NOTE = ("not run on the card: one H100, and the two-stage pipeline "
 def synthetic_models(n, m, B, T, seed, device, dtype=torch.float64):
     """Batch-last local models ``(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)``
     of a stable, well-conditioned problem, drawn in float64 on the CPU from
-    ``seed`` (the same numbers on any tree), then cast and moved."""
+    ``seed`` (the same numbers on any tree), then cast and moved.
+
+    The stage cost ``[[Qxx, Pux'], [Pux, Ruu]]`` must stay positive
+    semidefinite, or the recursion's ``H`` loses its Cholesky factor in the
+    plain version as in the kernel: ``Qxx >= 0.1 I``, ``Ruu >= I``, and the
+    cross term ``c * randn`` has a norm of about ``c (sqrt(n) + sqrt(m))``,
+    which must stay under ``sqrt(0.1)``.  ``c = 0.05`` does up to ``(32,
+    16)`` and is kept there (the inputs of every earlier row); past it ``c =
+    0.2 / (sqrt(n) + sqrt(m))`` (at ``(64, 32)``, c = 0.05 made 29 of 256
+    lanes NaN by T=100 in both versions)."""
 
     gen = torch.Generator(device="cpu").manual_seed(seed)
     f64 = dict(dtype=torch.float64)
+    cross = (0.05 if n <= 32 and m <= 16
+             else 0.2 / (n ** 0.5 + m ** 0.5))
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, **f64)
@@ -2299,23 +2474,31 @@ def synthetic_models(n, m, B, T, seed, device, dtype=torch.float64):
               + 0.1 * randn(T, n, n, B) / n ** 0.5,
               0.3 * randn(T, n, m, B), 0.1 * randn(T, n, B),
               0.1 * randn(T, m, B), 0.1 * spd(n, 0.5),
-              0.05 * randn(T, m, n, B), spd(m, 0.2), randn(n, B),
+              cross * randn(T, m, n, B), spd(m, 0.2), randn(n, B),
               spd(n, 1.0)[0])
     return tuple(x.to(dtype).to(device).contiguous() for x in models)
 
 
+def shape_types(n, m):
+    """The types phase ``shapes`` runs ``(n, m)`` in."""
+
+    return ((torch.float32,) if (n, m) in F32_ONLY_SHAPES
+            else (torch.float32, torch.float64))
+
+
 def instantiation_hashes(device):
-    """sha256 of the outputs of each fixed instantiation (batch-last and
+    """sha256 of the outputs of each fixed instantiation and of the
+    ``riccati_large.cu`` instantiations of LARGE_HASH_SHAPES (batch-last and
     batch-first entries, both types) on seeded inputs.  Uses only what every
-    tree of the port has, so that the same function can hash an older
-    tree's kernels."""
+    tree of the port with ``riccati_large.cu`` has, so that the same function
+    can hash an older tree's kernels."""
 
     import hashlib
 
     from ilqr_tpu_torch.ops import cuda_riccati
 
     out = {}
-    for n, m in HASH_SHAPES:
+    for n, m in HASH_SHAPES + LARGE_HASH_SHAPES:
         for dtype in (torch.float32, torch.float64):
             models = synthetic_models(n, m, HASH["B"], HASH["T"],
                                       HASH["seed"] + n, device, dtype)
@@ -2329,18 +2512,18 @@ def instantiation_hashes(device):
                 h = hashlib.sha256()
                 for x in outs:
                     h.update(x.contiguous().cpu().numpy().tobytes())
-                out[f"{cuda_riccati.KERNELS[(n, m, dtype)]}:{entry}"] = (
+                out[f"{cuda_riccati.kernel_name(n, m, dtype)}:{entry}"] = (
                     h.hexdigest())
     return out
 
 
 def resident_blocks(_build, library, source):
     """``{"batch_last": k, "batch_first": k}``: the blocks (lanes) of a
-    ``riccati_large.cu`` instantiation resident on one SM of this card, as
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` counts them (None for
-    the other sources)."""
+    ``riccati_large.cu`` or ``riccati_xl.cu`` instantiation resident on one
+    SM of this card, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    counts them (None for the other sources)."""
 
-    if source != "riccati_large":
+    if source not in ONE_LANE_A_BLOCK:
         return None
     fn = _build.load(library).riccati_cuda_instance_blocks_per_sm
     return {"batch_last": fn(0), "batch_first": fn(1)}
@@ -2404,11 +2587,12 @@ def phase_shapes(device, built):
     two entries equal (``torch.equal``); the time beside the bound (logical
     bytes read and written once over 3.35 TB/s) and the plain version's, the
     padded plan and its bytes, registers and spills, the blocks resident
-    on an SM (``riccati_large.cu``), the copy path, the ``nvcc`` seconds of
-    the new libraries (``built``), the cycles a step by stage of
-    ``riccati_large.cu``'s float32 rows.  Then the hashes of the
-    fixed instantiations' outputs.  Returns ``(batch-last rows, batch-first
-    rows)`` for the ``kernels`` line."""
+    on an SM (``riccati_large.cu``, ``riccati_xl.cu``), the copy path, the
+    ``nvcc`` seconds of the new libraries (``built``), the cycles a step by
+    stage of those two sources' float32 rows.  F32_ONLY_SHAPES run in
+    float32 only.  Then the hashes of the fixed instantiations' outputs and
+    of two ``riccati_large.cu`` ones.  Returns ``(batch-last rows,
+    batch-first rows)`` for the ``kernels`` line."""
 
     from ilqr_tpu_torch.ops import _build, cuda_riccati
     from ilqr_tpu_torch.ops.cuda_riccati import (from_batch_last,
@@ -2416,10 +2600,14 @@ def phase_shapes(device, built):
                                                  riccati_scan_cuda_bl,
                                                  riccati_scan_plain_bl)
 
-    B, T = SHAPES["B"], SHAPES["T"]
+    B = SHAPES["B"]
     rows_bl, rows_bf = {}, {}
+    print(f"chip_smoke: shapes: T cut from {SHAPES['T']} to "
+          f"{SHAPES['T_m32']} at m = 32 (the plain version's time)",
+          file=sys.stderr, flush=True)
     for n, m in NEW_SHAPES:
-        for dtype in (torch.float32, torch.float64):
+        T = SHAPES["T_m32"] if m == 32 else SHAPES["T"]
+        for dtype in shape_types(n, m):
             bl = synthetic_models(n, m, B, T, 7 * n + m, device, dtype)
             bf = tuple(x.movedim(-1, 0).contiguous() for x in bl)
             reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
@@ -2466,7 +2654,7 @@ def phase_shapes(device, built):
                 common, copy_path=path_bl,
                 ms=device_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20),
                 call_ms=sync_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20))
-            if source == "riccati_large" and dtype == torch.float32:
+            if source in ONE_LANE_A_BLOCK and dtype == torch.float32:
                 # Cycles a step by stage, from the stage-clock build.
                 rows_bl[name]["stage_cycles"] = (
                     cuda_riccati.riccati_stage_clocks(bl, reg))
@@ -2551,6 +2739,10 @@ def al_arm(phase, case, spec, budget_s, device):
 
     name = cuda_riccati.kernel_name(problem.state_dim + 1,
                                     problem.control_dim, torch.float32)
+    if spec["max_iter"] < AL_ARM_INNER_UNCUT:
+        print(f"chip_smoke: {phase}: inner max_iter cut from "
+              f"{AL_ARM_INNER_UNCUT} to {spec['max_iter']} so that the script "
+              f"fits its time", file=sys.stderr, flush=True)
     # One outer iteration sets the cut; it is the run itself where the
     # budget allows no more.
     cuda_riccati.reset_launch_counts()
@@ -2856,11 +3048,12 @@ def main():
     # Every source with fixed instantiations and its stage-clock build, and
     # the instantiations of NEW_SHAPES, one nvcc each, all together.
     instances = [cuda_riccati.library_and_symbol(n, m, dtype)[0]
-                 for n, m in NEW_SHAPES
-                 for dtype in (torch.float32, torch.float64)]
-    # The stage-clock builds of riccati_large.cu's float32 rows (shapes).
+                 for n, m in NEW_SHAPES for dtype in shape_types(n, m)]
+    # The stage-clock builds of the float32 rows of riccati_large.cu and
+    # riccati_xl.cu (shapes).
     clocks = [f"{name}_clocks" for name in instances
-              if name.startswith("riccati_large_") and name.endswith("f32")]
+              if name.startswith(tuple(f"{src}_" for src in ONE_LANE_A_BLOCK))
+              and name.endswith("f32")]
     libraries = (list(_build.SOURCES) + list(_build.VARIANTS) + instances
                  + clocks)
     _build.build(libraries)
@@ -2889,6 +3082,10 @@ def main():
     launches.update(phase_rbd_solve(cases[False], device, one_pass_full))
     launches.update(phase_rbd_parity(cases[False], device))
     launches.update(phase_rbd_6dof(cases[True], device))
+    dual_launches, dual_rows = phase_rbd_dual(rbd_case("dual"), device)
+    launches.update(dual_launches)
+    sources.update(dict.fromkeys(dual_rows, XL_SOURCE))
+    rows.update(dual_rows)
 
     bf_rows = phase_batched_entry(problem, cases, device)
     bf_launches = phase_vmap_solve(problem, solve_cfg, fused, device)

@@ -16,6 +16,7 @@ from ilqr_tpu_torch.models.rbd.dynamics import (
     forward_dynamics,
 )
 from ilqr_tpu_torch.models.rbd.model import (
+    DUAL_6DOF_ARM_URDF,
     SIX_DOF_ARM_URDF,
     TWO_DOF_ARM_URDF,
     make_rbd_dynamics,
@@ -34,6 +35,7 @@ __all__ = [
     "make_rbd_arm_problem",
     "rbd_to_mrp_state",
     "mrp_to_rbd_state",
+    "DUAL_6DOF_ARM_URDF",
     "SIX_DOF_ARM_URDF",
     "TWO_DOF_ARM_URDF",
 ]

@@ -53,6 +53,9 @@ from ilqr_tpu_torch.problem import Problem
 ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
 TWO_DOF_ARM_URDF = os.path.join(ASSET_DIR, "2Dof_arm.urdf")
 SIX_DOF_ARM_URDF = os.path.join(ASSET_DIR, "6Dof_arm.urdf")
+# Two 6-DoF arms on one free-flying base (n=36, m=18): 6Dof_arm.urdf's arm
+# and a copy of it whose first joint sits at y = -0.5 (assets/README.md).
+DUAL_6DOF_ARM_URDF = os.path.join(ASSET_DIR, "dual_6Dof_arm.urdf")
 
 def rbd_to_mrp_state(x):
     """[quat(4); rest] → [mrp(3); rest] (RBD_helper_functions.jl:29-33);
@@ -368,7 +371,8 @@ def make_rbd_arm_problem(target_pose: Optional[Sequence[float]] = None,
     pose/torque weights, heavy terminal weight.
 
     ``urdf_path=SIX_DOF_ARM_URDF`` with a 12-component ``target_pose`` gives
-    the 6-DoF arm (n=24, m=12).
+    the 6-DoF arm (n=24, m=12); ``urdf_path=DUAL_6DOF_ARM_URDF`` with an
+    18-component one the free-flying dual arm (n=36, m=18).
 
     With ``analytic_jacobians=True`` (default) the problem carries
     :func:`make_rbd_dynamics_jacobians` as ``dynamics_jacobians`` (the

@@ -3,13 +3,14 @@
 Counterpart of ``ilqr_tpu/ops/pallas_riccati.py`` (its batch-last entry
 ``riccati_scan_pallas_bl`` and its batch-first entry
 ``riccati_scan_pallas_batched``).  The kernel is written by hand for ``sm_90a``
-in three designs — ``csrc/riccati.cu``, one thread a lane with a ring of
+in four designs — ``csrc/riccati.cu``, one thread a lane with a ring of
 prefetched steps, for ``(n, m) = (4, 2)`` and ``(5, 2)`` (the 2-link arm
 under ``al.al_solve``, whose state carries the step index);
 ``csrc/riccati_wide.cu``, a lane
 spread over four warps with its matrices in shared memory and its inputs
 brought in by TMA, for ``(16, 8)`` and ``(24, 12)``; ``csrc/riccati_large.cu``
-for the shapes past the wide plan (below; each source says why) — all
+and ``csrc/riccati_xl.cu`` for the shapes past the wide plan (below; each
+source says why) — all
 reading either layout in place, selected by a layout argument, built
 at first use by :mod:`ilqr_tpu_torch.ops._build` and called through ctypes.
 It has no gradient (the JAX kernel has none either), so there is no
@@ -21,10 +22,13 @@ shape reaches it, is an instantiation built at first use
 (one thread a lane, whose registers are nearly spent at ``(5, 2)``),
 ``riccati_wide.cu`` padded to ``(ceil(n/8)*8, ceil(m/4)*4)`` up to the
 padded ``(24, 12)`` (:data:`WIDE_MAX`, where its plan of two lanes a block
-ends), and ``csrc/riccati_large.cu`` past that — one lane a block at the
-logical shape, unpadded — up to ``n <= 32``, ``m <= 16``
-(:data:`LARGE_MAX`, the largest shape held on the card).  A larger shape
-raises before any ``nvcc`` run.
+ends), ``csrc/riccati_large.cu`` past that — one lane a block at the
+logical shape, unpadded — up to ``n <= 32``, ``m <= 16`` (:data:`LARGE_MAX`),
+and ``csrc/riccati_xl.cu`` past that — one lane a block, only ``A`` and
+``B`` of the inputs staged in shared memory — up to ``n <= 64``, ``m <= 32``
+(:data:`XL_MAX`, the largest shape held on the card: the free-flying dual
+arm's ``(36, 18)`` and a humanoid's ``(64, 32)``).  A larger shape raises
+before any ``nvcc`` run.
 
 * :func:`riccati_scan_cuda_bl` — the wrapper.  On CUDA tensors it launches
   the kernel or raises; on CPU tensors it takes the plain version.  It
@@ -97,9 +101,13 @@ ONE_THREAD_MAX = 5
 # The largest padded (N, M) riccati_wide.cu serves: two lanes a block and
 # one warp for the N + 1 column solves end its plan there.
 WIDE_MAX = (24, 12)
-# The largest (n, m) riccati_large.cu serves, unpadded: the largest shape
-# held on the card (its plan's static_asserts own the exact limit).
+# The largest (n, m) riccati_large.cu serves, unpadded (its plan's
+# static_asserts own the exact limit).
 LARGE_MAX = (32, 16)
+# The largest (n, m) riccati_xl.cu serves, unpadded: the largest shape held
+# on the card.  There a lane's step fills one block's shared memory (212,480
+# of 232,448 bytes in float64); a larger lane needs a cluster of blocks.
+XL_MAX = (64, 32)
 
 # Launches per kernel name: one is added where a wrapper launches the
 # kernel, and nowhere else — by the batch-last entry to ``launch_counts``,
@@ -116,8 +124,9 @@ BATCH_LAST, BATCH_FIRST = 0, 1
 # time batch-last and 16 bytes at a time batch-first; riccati_large.cu one
 # 1-D bulk copy (the TMA engine, path 1) an input and step batch-first (it
 # refuses inputs that do not start on 16 bytes: as_kernel_input aligns
-# them), a value at a time batch-last.
-COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16"}
+# them), a value at a time batch-last; riccati_xl.cu reads with plain loads
+# from where the inputs lie, in both layouts (path 3).
+COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16", 3: "direct"}
 
 # Kernel name, layout and copy path of the last launch (either entry, or
 # the stage-clock build).
@@ -149,13 +158,16 @@ def route(n: int, m: int) -> Tuple[str, int, int]:
     N, M = -(-n // 8) * 8, -(-m // 4) * 4
     if N <= WIDE_MAX[0] and M <= WIDE_MAX[1]:
         return "riccati_wide", N, M
-    if n > LARGE_MAX[0] or m > LARGE_MAX[1]:
+    if n <= LARGE_MAX[0] and m <= LARGE_MAX[1]:
+        return "riccati_large", n, m
+    if n > XL_MAX[0] or m > XL_MAX[1]:
         raise NotImplementedError(
-            f"the fused Riccati kernel serves n <= {LARGE_MAX[0]} and m <= "
-            f"{LARGE_MAX[1]}: (n, m) = ({n}, {m}) is past the largest shape "
-            f"served, {LARGE_MAX} in riccati_large.cu; use "
-            f"backward_backend='scan'")
-    return "riccati_large", n, m
+            f"the fused Riccati kernel serves n <= {XL_MAX[0]} and m <= "
+            f"{XL_MAX[1]}: (n, m) = ({n}, {m}) is past the largest shape "
+            f"served, {XL_MAX} in riccati_xl.cu, where one lane's step fills "
+            f"a block's shared memory (a larger lane needs a cluster of "
+            f"blocks); use backward_backend='scan'")
+    return "riccati_xl", n, m
 
 
 def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
@@ -369,7 +381,12 @@ STAGES = {"riccati": ("copy_issue_wait", "smem_load", "gains", "value"),
           # Seen from thread 0, a solver: stage 3 split by the solver
           # warps' parts, then the wait for warps 2-7 (P, the repack).
           "riccati_large": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd",
-                            "P_repack_wait", "value")}
+                            "P_repack_wait", "value"),
+          # Seen from thread 0, the factoring warp: stage 3 split by the
+          # solver warps' parts, then the wait for warps 4-7 (P, the next
+          # step's A and B).
+          "riccati_xl": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd",
+                         "P_load_wait", "value")}
 
 
 def riccati_stage_clocks(arrays, reg, layout=BATCH_LAST):

@@ -23,8 +23,10 @@ past the padded ``(24, 12)``, ``riccati_large.cu``), float64, CPU.
   ``(17, 8)`` goes to the wide source padded to ``(24, 8)``, ``(6, 11)``
   to ``(8, 12)``; ``(25, 12)``, ``(32, 16)``, ``(29, 5)``, ``(32, 12)``
   and ``(10, 13)``, which pad past ``(24, 12)``, go to
-  ``riccati_large.cu`` unpadded; shapes past ``(32, 16)`` raise naming
-  that ceiling before any ``nvcc`` run.
+  ``riccati_large.cu`` unpadded; ``(33, 12)``, ``(25, 17)``, ``(24, 24)``,
+  ``(33, 1)`` and ``(40, 20)``, past ``(32, 16)``, to ``riccati_xl.cu``
+  unpadded; shapes past ``(64, 32)`` raise naming that ceiling before any
+  ``nvcc`` run.
 """
 
 import jax.numpy as jnp
@@ -212,12 +214,22 @@ def test_routing():
     assert cuda_riccati.library_and_symbol(32, 16, f64) == (
         "riccati_large_32x16_f64", "riccati_cuda_instance")
     assert cuda_riccati.LARGE_MAX == (32, 16)
-    # Past (32, 16), the largest shape held on the card: refused before any
-    # nvcc run, in either type, with the ceiling named.
+    # Past (32, 16), up to (64, 32): riccati_xl.cu at the logical shape, an
+    # instantiation built at first use in either type.
     for n, m in ((33, 12), (25, 17), (24, 24), (33, 1), (40, 20)):
+        assert cuda_riccati.route(n, m) == ("riccati_xl", n, m)
+        for dtype, tag in ((f32, "f32"), (f64, "f64")):
+            assert cuda_riccati.kernel_name(n, m, dtype) == (
+                f"riccati_cuda_{n}x{m}_{tag}")
+            assert cuda_riccati.library_and_symbol(n, m, dtype) == (
+                f"riccati_xl_{n}x{m}_{tag}", "riccati_cuda_instance")
+    assert cuda_riccati.XL_MAX == (64, 32)
+    # Past (64, 32), the largest shape held on the card: refused before any
+    # nvcc run, in either type, with the ceiling named.
+    for n, m in ((65, 1), (1, 33), (80, 40)):
         for dtype in (f32, f64):
             with pytest.raises(NotImplementedError,
-                               match=r"n <= 32 and m <= 16.*\(32, 16\)"):
+                               match=r"n <= 64 and m <= 32.*\(64, 32\)"):
                 cuda_riccati.kernel_name(n, m, dtype)
     with pytest.raises(NotImplementedError, match="float16"):
         cuda_riccati.kernel_name(4, 2, torch.float16)
