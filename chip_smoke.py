@@ -6,6 +6,8 @@
                                             # output hashes (of the port in ROOT)
     python3 chip_smoke.py --large-times [ROOT]   # only riccati_large.cu's
                                             # device times (of the port in ROOT)
+    python3 chip_smoke.py --xl-times [ROOT]   # only riccati_xl.cu's device
+                                            # times and stage clocks (ditto)
 
 Needs one CUDA card (written for an H100, ``sm_90a``) and ``nvcc``; with no
 card it exits non-zero and prints no result.  It imports nothing of JAX and
@@ -199,6 +201,10 @@ Phases, one JSON line each:
 ``riccati_large.cu`` instantiations of LARGE_TIMES (both entries, both
 types) of the port in ROOT (an older tree unpacked beside this one, as for
 ``--hashes``) or of this tree: run both in one call to compare two plans.
+
+``--xl-times [ROOT]`` does the same for the ``riccati_xl.cu`` rows of
+XL_TIMES (the shapes of ``shapes`` that route there and ``rbd_dual``'s
+launch), with each entry's stage clocks, copy path and output hash.
 
 Then one line with every kernel's numbers (the batch-first entry in rows of
 its own, at each instantiation its path launched; the instantiations of
@@ -1268,7 +1274,8 @@ def phase_rbd_dual(case, device):
     instantiation, in ``riccati_xl.cu``.  First the kernel on the local
     models of an iterate rolled out under small random controls, against
     the plain version (F32_REL_BOUND_RBD of each output's largest
-    magnitude), timed beside its bound.  Then the solve, ``max_iter`` cut
+    magnitude), timed beside its bound, with its copy path, blocks an SM
+    and shared bytes.  Then the solve, ``max_iter`` cut
     from the first pass's time to DUAL_BUDGET_S (printed), the launches set
     to 0 before and read after; and the same solve with ``"scan"``: status
     equal on every lane, ``us`` of the lanes on the same iteration count
@@ -1277,7 +1284,7 @@ def phase_rbd_dual(case, device):
     launches}, the kernel's row)``."""
 
     from ilqr_tpu_torch import batched
-    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.ops import _build, cuda_riccati
     from ilqr_tpu_torch.ops.cuda_riccati import (riccati_scan_cuda_bl,
                                                  riccati_scan_plain_bl)
     from ilqr_tpu_torch.parallel.batching import make_batch_solver
@@ -1300,8 +1307,13 @@ def phase_rbd_dual(case, device):
     torch.cuda.synchronize()
     max_abs, max_rel = hold(kern, plain, F32_REL_BOUND_RBD)
     bound_ms, bound_by = riccati_bound_ms(T, B, torch.float32, n, m)
+    library = cuda_riccati.library_and_symbol(n, m, torch.float32)[0]
     row = dict(B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel,
                rel_bound=F32_REL_BOUND_RBD, copy_path=path,
+               plan_bytes=(_build.load(library)
+                           .riccati_cuda_instance_shared_bytes()),
+               resident_blocks_per_sm=resident_blocks(_build, library,
+                                                      "riccati_xl"),
                ms=device_time(lambda: riccati_scan_cuda_bl(*models, reg), 30),
                call_ms=sync_time(lambda: riccati_scan_cuda_bl(*models, reg),
                                  30),
@@ -2580,6 +2592,71 @@ def large_times(device):
                 f64_stage_clock_s=time.perf_counter() - t0)
 
 
+# The instantiations of riccati_xl.cu that --xl-times times: those of
+# NEW_SHAPES that route there, at phase shapes' B, T and types and on its
+# seeded inputs, and rbd_dual's launch, (36, 18) float32 at DUAL's B=64,
+# T=50.
+XL_TIMES = tuple(
+    ((n, m), SHAPES["B"], SHAPES["T_m32"] if m == 32 else SHAPES["T"],
+     shape_types(n, m))
+    for n, m in NEW_SHAPES if n > 32 or m > 16) + (
+    ((36, 18), DUAL["B"], DUAL["T"], (torch.float32,)),)
+
+
+def xl_times(device):
+    """Device time (ms) of both entries of every ``riccati_xl.cu`` row of
+    XL_TIMES, with the cycles a step by stage of each entry (its
+    stage-clock build), the copy path each entry took, the blocks an SM,
+    the shared bytes the source reckons, ``ptxas``' registers and spills
+    and a sha256 of each entry's outputs; then the seconds it all took.
+    Uses only what every tree of the port since that source came has, so
+    that the same function times an older tree's plan: ``python3
+    chip_smoke.py --xl-times ROOT``."""
+
+    import hashlib
+
+    from ilqr_tpu_torch.ops import _build, cuda_riccati
+
+    t0 = time.perf_counter()
+    libraries = sorted({cuda_riccati.library_and_symbol(n, m, dtype)[0]
+                        for (n, m), _, _, types in XL_TIMES
+                        for dtype in types})
+    _build.build(libraries + [f"{name}_clocks" for name in libraries])
+    build_s = time.perf_counter() - t0
+    out = {}
+    for (n, m), B, T, types in XL_TIMES:
+        for dtype in types:
+            bl = synthetic_models(n, m, B, T, 7 * n + m, device, dtype)
+            bf = tuple(x.movedim(-1, 0).contiguous() for x in bl)
+            reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
+            name = cuda_riccati.kernel_name(n, m, dtype)
+            library = cuda_riccati.library_and_symbol(n, m, dtype)[0]
+            row = dict(
+                shared_bytes=(_build.load(library)
+                              .riccati_cuda_instance_shared_bytes()),
+                resident_blocks_per_sm=resident_blocks(_build, library,
+                                                       "riccati_xl"),
+                ptxas=ptxas_summary(_build, [library]))
+            for entry, fn, arrays, layout in (
+                    ("batch_last", cuda_riccati.riccati_scan_cuda_bl, bl,
+                     cuda_riccati.BATCH_LAST),
+                    ("batch_first", cuda_riccati.riccati_scan_cuda_batched,
+                     bf, cuda_riccati.BATCH_FIRST)):
+                outs = fn(*arrays, reg)
+                h = hashlib.sha256()
+                for x in outs:
+                    h.update(x.contiguous().cpu().numpy().tobytes())
+                row[entry] = dict(
+                    ms=device_time(lambda: fn(*arrays, reg), 20),
+                    copy_path=last_copy_path(), sha256=h.hexdigest(),
+                    stage_cycles=cuda_riccati.riccati_stage_clocks(
+                        arrays, reg, layout))
+            out[f"{name}:B{B}_T{T}"] = row
+            del bl, bf
+    return dict(rows=out, build_s=build_s,
+                seconds=time.perf_counter() - t0)
+
+
 def phase_shapes(device, built):
     """The kernel at the shapes of NEW_SHAPES, built at first use: both
     entries, both types, on seeded inputs at B=256, T=100, against the plain
@@ -3022,6 +3099,18 @@ def main():
         import ilqr_tpu_torch
 
         print(json.dumps({"large_times": large_times(
+            torch.device("cuda", torch.cuda.current_device())),
+            "package": ilqr_tpu_torch.__file__}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--xl-times"]:
+        # python3 chip_smoke.py --xl-times [ROOT]: the device times and
+        # stage clocks of riccati_xl.cu's instantiations only, of the port
+        # in ROOT (an older tree unpacked beside this one) or of this one.
+        if len(sys.argv) > 2:
+            sys.path.insert(0, sys.argv[2])
+        import ilqr_tpu_torch
+
+        print(json.dumps({"xl_times": xl_times(
             torch.device("cuda", torch.cuda.current_device())),
             "package": ilqr_tpu_torch.__file__}), flush=True)
         return 0

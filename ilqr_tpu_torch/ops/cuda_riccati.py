@@ -24,8 +24,9 @@ shape reaches it, is an instantiation built at first use
 padded ``(24, 12)`` (:data:`WIDE_MAX`, where its plan of two lanes a block
 ends), ``csrc/riccati_large.cu`` past that — one lane a block at the
 logical shape, unpadded — up to ``n <= 32``, ``m <= 16`` (:data:`LARGE_MAX`),
-and ``csrc/riccati_xl.cu`` past that — one lane a block, only ``A`` and
-``B`` of the inputs staged in shared memory — up to ``n <= 64``, ``m <= 32``
+and ``csrc/riccati_xl.cu`` past that — one lane a block, the inputs
+staged in shared memory or carried in registers a step ahead — up to ``n <=
+64``, ``m <= 32``
 (:data:`XL_MAX`, the largest shape held on the card: the free-flying dual
 arm's ``(36, 18)`` and a humanoid's ``(64, 32)``).  A larger shape raises
 before any ``nvcc`` run.
@@ -105,7 +106,7 @@ WIDE_MAX = (24, 12)
 # static_asserts own the exact limit).
 LARGE_MAX = (32, 16)
 # The largest (n, m) riccati_xl.cu serves, unpadded: the largest shape held
-# on the card.  There a lane's step fills one block's shared memory (212,480
+# on the card.  There a lane's step fills one block's shared memory (204,672
 # of 232,448 bytes in float64); a larger lane needs a cluster of blocks.
 XL_MAX = (64, 32)
 
@@ -124,9 +125,14 @@ BATCH_LAST, BATCH_FIRST = 0, 1
 # time batch-last and 16 bytes at a time batch-first; riccati_large.cu one
 # 1-D bulk copy (the TMA engine, path 1) an input and step batch-first (it
 # refuses inputs that do not start on 16 bytes: as_kernel_input aligns
-# them), a value at a time batch-last; riccati_xl.cu reads with plain loads
-# from where the inputs lie, in both layouts (path 3).
-COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16", 3: "direct"}
+# them), a value at a time batch-last; riccati_xl.cu fills a ring of two
+# slots beside its plan where one fits (path 1: batch-first the bulk copy,
+# where the ring also costs no block an SM; batch-last TMA boxes of 16 bytes
+# of lanes), else carries each thread's first terms a step ahead in
+# registers (path 4, also batch-last when a row of B lanes is not whole
+# 16-byte granules).
+COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16",
+              4: "register_prefetch"}
 
 # Kernel name, layout and copy path of the last launch (either entry, or
 # the stage-clock build).
@@ -382,8 +388,8 @@ STAGES = {"riccati": ("copy_issue_wait", "smem_load", "gains", "value"),
           # warps' parts, then the wait for warps 2-7 (P, the repack).
           "riccati_large": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd",
                             "P_repack_wait", "value"),
-          # Seen from thread 0, the factoring warp: stage 3 split by the
-          # solver warps' parts, then the wait for warps 4-7 (P, the next
+          # Seen from thread 0, a solver: stage 3 split by the solver
+          # warps' parts, then the wait for the packer warps (P, the next
           # step's A and B).
           "riccati_xl": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd",
                          "P_load_wait", "value")}

@@ -19,7 +19,10 @@
   cached its small programs; the scan under ``jax.disable_jit`` is several
   times slower, and slower still vmapped).
 * The host side of the new source: its build flags, its ceiling, the copy
-  path its launcher reports, its instantiation names.
+  paths its launcher reports and which one its plan takes at each shape,
+  layout and type (the shared-memory arithmetic written out again in
+  :func:`xl_plan`), its instantiation names; ``chip_smoke.py --xl-times``'
+  rows.
 * The kernel itself on the card (marked ``gpu``; skips here).
 """
 
@@ -129,6 +132,68 @@ def test_the_new_source_is_built_at_first_use():
         "riccati_cuda_64x32_f64")
 
 
+def up(x, to):
+    return -(-x // to) * to
+
+
+def xl_plan(n, m, size, layout, staged):
+    """``(bytes, blocks an SM asked for)`` of ``riccati_xl.cu``'s Plan at
+    ``(n, m)`` in values of ``size`` bytes, for a layout and copy path (the
+    staging ring or registers): its shared-memory arithmetic, written out
+    again so that the card's test can hold the source to it."""
+
+    NP, MP = up(n, 8 if size == 8 else 4), up(m, 4)
+    LDN = NP + 8 if (NP + 4) % 32 == 0 else NP + 4
+    LDM, NA = MP + 4, LDN
+    solvers = (n + 1 + 31) // 32
+    lwarp = up(m * (m + 1) // 2, 4)
+    # A, B, S, S' (float32), S A, S'B, W, K, G, H'; each solver warp's L in
+    # the buffer of S'B where it fits; the reciprocal pivots, s, ys and
+    # four scalars (reg, dv1, dv2).
+    ht_end = (3 * NP * LDN + (0 if size == 8 else NP * LDN) + 2 * NP * LDM
+              + 3 * MP * NA + MP * LDM)
+    if solvers * lwarp > NP * LDM:
+        ht_end += solvers * lwarp
+    stage = up(ht_end + solvers * MP + 2 * NP + 4, 128 // size)
+    vec = 16 // size
+    E = (n * n, n * m, n, m, n * n, m * n, m * m)
+    slot = sum(up(e + 2 * vec if layout == cuda_riccati.BATCH_FIRST
+                  else e * vec, 128 // size) for e in E)
+    nbytes = (stage + (2 * slot if staged else 0)) * size + (16 if staged else 0)
+    blocks = (2 if layout == cuda_riccati.BATCH_FIRST
+              and nbytes <= 233472 // 2 - 1024
+              and m <= (16 if size == 8 else 24) else 1)
+    return nbytes, blocks
+
+
+def xl_copy_path(n, m, dtype, layout, B):
+    """The copy path ``riccati_xl.cu``'s launcher takes: the staging ring
+    where two slots fit beside the plan (batch-first, where they also cost
+    no block an SM; batch-last, where a row of B lanes is whole 16-byte
+    granules), else registers."""
+
+    size = torch.empty((), dtype=dtype).element_size()
+    staged, blocks = xl_plan(n, m, size, layout, True)
+    _, prefetch_blocks = xl_plan(n, m, size, layout, False)
+    ring = staged <= 232448
+    if layout == cuda_riccati.BATCH_FIRST:
+        ring = ring and blocks >= prefetch_blocks
+    elif (B * size) % 16:
+        ring = False
+    return "tma" if ring else "register_prefetch"
+
+
+def xl_shared_bytes(n, m, dtype):
+    """What ``riccati_cuda_instance_shared_bytes`` reports: the larger of
+    the two layouts' plans on their paths."""
+
+    size = torch.empty((), dtype=dtype).element_size()
+    return max(xl_plan(n, m, size, layout,
+                       xl_copy_path(n, m, dtype, layout, 256) == "tma")[0]
+               for layout in (cuda_riccati.BATCH_LAST,
+                              cuda_riccati.BATCH_FIRST))
+
+
 def test_the_new_source_host_interface():
     # (Its stage-clock names: tests/test_torch_riccati_large.py.)
     text = (_build.CSRC / "riccati_xl.cu").read_text()
@@ -136,30 +201,95 @@ def test_the_new_source_host_interface():
     (n_max, m_max) = re.findall(r"constexpr int kMaxN = (\d+), kMaxM = (\d+);",
                                 text)[0]
     assert (int(n_max), int(m_max)) == cuda_riccati.XL_MAX == (64, 32)
-    # The copy path it reports: plain loads where the inputs lie.
-    (path,) = re.findall(r"constexpr int kPathDirect = (\d+);", text)
-    assert cuda_riccati.COPY_PATHS[int(path)] == "direct"
+    # The copy paths it reports: the bulk-copy or TMA engine into the
+    # staging ring, or registers.
+    (tma, prefetch) = re.findall(
+        r"constexpr int kPathTma = (\d+), kPathPrefetch = (\d+);", text)[0]
+    assert cuda_riccati.COPY_PATHS[int(tma)] == "tma"
+    assert cuda_riccati.COPY_PATHS[int(prefetch)] == "register_prefetch"
+    BL, BF = cuda_riccati.BATCH_LAST, cuda_riccati.BATCH_FIRST
+    f32, f64 = torch.float32, torch.float64
+    # The staging ring batch-first wherever two slots fit, as at (36, 18)
+    # and (64, 32) in float32, two lanes an SM at (36, 18) float32 ...
+    for n, m, dtype in ((36, 18, f32), (36, 18, f64), (64, 32, f32),
+                        (37, 18, f32), (33, 16, f32), (20, 32, f32)):
+        assert xl_copy_path(n, m, dtype, BF, 256) == "tma", (n, m, dtype)
+    assert xl_plan(36, 18, 4, BF, True) == (77328, 2)
+    # ... batch-last, TMA boxes of 16 bytes of lanes (four lanes' values
+    # in float32) wherever two slots of them fit, at one block an SM.
+    assert xl_plan(36, 18, 4, BL, True) == (178960, 1)
+    for n, m, dtype in ((36, 18, f32), (36, 18, f64), (37, 18, f32),
+                        (33, 16, f32), (20, 32, f32)):
+        assert xl_copy_path(n, m, dtype, BL, 256) == "tma", (n, m, dtype)
+    assert xl_copy_path(36, 18, f32, BL, 64) == "tma"
+    # A ragged batch-last row (B = 5 lanes of 4 bytes) takes registers.
+    assert xl_copy_path(36, 18, f32, BL, 5) == "register_prefetch"
+    assert xl_plan(36, 18, 4, BL, False) == (41984, 1)
+    # (64, 32): no ring of boxes fits batch-last; in float64 no slot fits
+    # beside its 204,672 bytes, so the registers carry the inputs in both
+    # layouts.
+    assert xl_copy_path(64, 32, f32, BL, 256) == "register_prefetch"
+    assert xl_plan(64, 32, 8, BF, False) == (204672, 1)
+    assert xl_plan(64, 32, 8, BF, True)[0] > 232448
+    for layout in (BL, BF):
+        assert xl_copy_path(64, 32, f64, layout, 256) == "register_prefetch"
 
 
 @pytest.mark.gpu
 def test_xl_shapes_on_the_card():
-    """Needs the card: the new instantiations against the plain version,
-    float64, both entries bit-equal, launches counted."""
+    """Needs the card: the instantiations against the plain version, both
+    types (float64 to rtol 1e-10, float32 within 5e-5 of each output's
+    largest magnitude, chip_smoke.py's bars), both entries bit-equal, at a
+    ragged and a whole batch of 16-byte rows; launches counted, the copy
+    paths and shared bytes those of the plan."""
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     for n, m in CARD_SHAPES:
-        models = tuple(to_torch(a).cuda()
-                       for a in synthetic_models(n, m, 5, 7, seed=n))
-        name = cuda_riccati.kernel_name(n, m, torch.float64)
-        before = cuda_riccati.launch_counts.get(name, 0)
-        out = riccati_scan_cuda_bl(*models, 1e-2)
-        assert cuda_riccati.launch_counts[name] == before + 1
-        assert cuda_riccati.last_launch["copy_path"] == "direct"
-        want = riccati_scan_plain_bl(*models, 1e-2)
-        for o, w in zip(out, want):
-            torch.testing.assert_close(o, w, rtol=1e-10, atol=1e-12)
-        bf = riccati_scan_cuda_batched(
-            *(x.movedim(-1, 0).contiguous() for x in models), 1e-2)
-        for a, b in zip(from_batch_last(out), bf):
-            assert torch.equal(a, b)
+        for dtype in (torch.float64, torch.float32):
+            for B in (5, 8):
+                models = tuple(
+                    to_torch(a).to(dtype).cuda()
+                    for a in synthetic_models(n, m, B, 7, seed=n + B))
+                name = cuda_riccati.kernel_name(n, m, dtype)
+                before = cuda_riccati.launch_counts.get(name, 0)
+                out = riccati_scan_cuda_bl(*models, 1e-2)
+                assert cuda_riccati.launch_counts[name] == before + 1
+                assert cuda_riccati.last_launch["copy_path"] == xl_copy_path(
+                    n, m, dtype, cuda_riccati.BATCH_LAST, B)
+                want = riccati_scan_plain_bl(*models, 1e-2)
+                for o, w in zip(out, want):
+                    if dtype == torch.float64:
+                        torch.testing.assert_close(o, w, rtol=1e-10,
+                                                   atol=1e-12)
+                    else:
+                        assert torch.isfinite(o).all()
+                        err = (o - w).abs().max() / w.abs().max()
+                        assert float(err) <= 5e-5, (n, m, B, float(err))
+                bf = riccati_scan_cuda_batched(
+                    *(x.movedim(-1, 0).contiguous() for x in models), 1e-2)
+                assert cuda_riccati.last_launch["copy_path"] == xl_copy_path(
+                    n, m, dtype, cuda_riccati.BATCH_FIRST, B)
+                for a, b in zip(from_batch_last(out), bf):
+                    assert torch.equal(a, b)
+            library = cuda_riccati.library_and_symbol(n, m, dtype)[0]
+            assert (_build.load(library).riccati_cuda_instance_shared_bytes()
+                    == xl_shared_bytes(n, m, dtype))
+
+
+def test_xl_times_covers_every_xl_shape():
+    # chip_smoke.py --xl-times times every shape of phase shapes that
+    # routes to riccati_xl.cu, in the types shapes runs it in, at shapes'
+    # B and T, and rbd_dual's launch: (36, 18) float32, B=64, T=50.
+    import chip_smoke
+
+    rows = {(shape, B, T, types) for shape, B, T, types in chip_smoke.XL_TIMES}
+    want = {((n, m), chip_smoke.SHAPES["B"],
+             chip_smoke.SHAPES["T_m32"] if m == 32 else chip_smoke.SHAPES["T"],
+             chip_smoke.shape_types(n, m))
+            for n, m in chip_smoke.NEW_SHAPES
+            if cuda_riccati.route(n, m)[0] == "riccati_xl"}
+    assert len(want) == 5
+    want.add(((36, 18), chip_smoke.DUAL["B"], chip_smoke.DUAL["T"],
+              (torch.float32,)))
+    assert rows == want
