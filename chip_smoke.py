@@ -95,6 +95,11 @@ Phases, one JSON line each:
                 after) and its scan twin: status equal on every lane, the
                 median and worst lane of ``us`` and the worst cost within
                 the 6-DoF bars.
+10b. ``rbd_five``   the same for the free-flying five-arm (five 6-DoF arms
+                on one floating base, n=72, m=36): the ``(72, 36)`` kernel
+                in ``riccati_cluster.cu``, a cluster of blocks a lane (its
+                blocks a lane and the clusters resident printed), at the
+                dual arm's B, T and budget.
 11. ``batched_entry``  the kernel's batch-first entry
                 ``riccati_scan_cuda_batched`` at every instantiation ((4, 2)
                 B=4096 T=100, (16, 8) B=256 T=100, (24, 12) B=64 T=50, both
@@ -160,8 +165,13 @@ Phases, one JSON line each:
                 states); past ``(32, 16)``, in ``riccati_xl.cu``: ``(36,
                 18)`` (launched by ``rbd_dual``) and ``(64, 32)`` (its
                 ceiling) in both types, ``(37, 18)``, ``(33, 16)`` and
-                ``(20, 32)`` in float32; both entries, seeded
-                inputs at B=256, T=100, against the plain version at the
+                ``(20, 32)`` in float32; past ``(64, 32)``, in
+                ``riccati_cluster.cu``: ``(72, 36)`` (launched by
+                ``rbd_five``) and ``(128, 64)`` (its ceiling) in both types,
+                ``(65, 32)``, ``(73, 36)``, ``(20, 40)`` and ``(96, 48)`` in
+                float32 (the blocks a lane and the clusters resident
+                printed); both entries, seeded
+                inputs at B=256, T=100 (T=25 where m >= 32), against the plain version at the
                 bars of ``kernels``; time, bound, plain time, padded plan and
                 the bytes the source reports, registers and spills, copy
                 path, nvcc seconds, and for ``riccati_large.cu`` and
@@ -491,8 +501,9 @@ def phase_parity(problem, config, device):
          us_max_abs_diff=float((gpu.us.cpu() - cpu.us).abs().max()))
 
 
-def time_one_pass(problem, config, x0s, us0):
-    """Seconds of the first pass, phase by phase, at full width."""
+def time_one_pass(problem, config, x0s, us0, xs=None):
+    """Seconds of the first pass, phase by phase, at full width; ``xs``,
+    when given, is the rollout of ``x0s`` under ``us0`` (batch-last)."""
 
     from ilqr_tpu_torch import batched
     from ilqr_tpu_torch.step import initial_state
@@ -506,7 +517,8 @@ def time_one_pass(problem, config, x0s, us0):
 
     B = x0s.shape[0]
     us = us0.movedim(0, -1).contiguous()
-    xs = batched.rollout_bl(problem, x0s.T.contiguous(), us)
+    if xs is None:
+        xs = batched.rollout_bl(problem, x0s.T.contiguous(), us)
     state = initial_state(xs, us, config, lane_shape=(B,))
     models, t_d = timed(lambda: batched.derivatives_bl(
         problem, xs, us, chunk=config.derivative_chunk))
@@ -707,9 +719,11 @@ def phase_solve(problem, config, device):
 WIDE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_wide.cu"
 LARGE_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_large.cu"
 XL_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_xl.cu"
+CLUSTER_SOURCE = "ilqr_tpu_torch/ops/csrc/riccati_cluster.cu"
 # cuda_riccati.route's source -> its file.
 SOURCE_FILES = {"riccati": KERNEL_SOURCE, "riccati_wide": WIDE_SOURCE,
-                "riccati_large": LARGE_SOURCE, "riccati_xl": XL_SOURCE}
+                "riccati_large": LARGE_SOURCE, "riccati_xl": XL_SOURCE,
+                "riccati_cluster": CLUSTER_SOURCE}
 # The sources built only as instantiations at first use, one lane a block:
 # their builds report the blocks resident on an SM, and their float32 rows
 # of phase shapes the cycles a step by stage.
@@ -732,11 +746,12 @@ RBD_BUDGET_S = 150.0
 FULL_DEPTH_RUNGS = 3
 # The same for the 6-DoF solve, its float64 run and its scan twin: caps
 # max_iter from the time of the first pass (cut from 100 s with al_6dof, to
-# 40 s with RBD["max_iter_cut"], for the same reason); at least min_iter
-# passes, and min_iter in float64 (3 until rbd_dual came, for the same
-# reason).  The first pass is held tightly against the scan backend on its
-# own (compare_first_pass), whatever the cut.
-SIX_BUDGET_S = 40.0
+# 40 s with RBD["max_iter_cut"], to 20 s, one pass on an H100, with
+# rbd_five, for the same reason); at least min_iter passes, and min_iter in
+# float64 (3 until rbd_dual came, for the same reason).  The first pass is
+# held tightly against the scan backend on its own (compare_first_pass),
+# whatever the cut.
+SIX_BUDGET_S = 20.0
 # The free-flying dual arm (n=36, m=18: the kernel in riccati_xl.cu),
 # scripts/bench_6dof.py's B and T; its solve and scan twin may take
 # DUAL_BUDGET_S together, which caps max_iter from the time of the first
@@ -787,18 +802,23 @@ def rbd_case(six_dof):
     """``(problem, nominal state, per-component noise)`` of the reference's
     2-DoF arm (``bench.py --config rbd``: pose-only noise 0.05, attitude
     0.4 of it), the 6-DoF arm (``scripts/bench_6dof.py``: 0.02 on every
-    component) or, ``six_dof="dual"``, the free-flying dual arm (two 6-DoF
-    arms on one base: the 6-DoF case extended to 36 components)."""
+    component) or, ``six_dof="dual"`` or ``"five"``, the free-flying dual
+    arm or five-arm (two or five 6-DoF arms on one base: the 6-DoF case
+    extended to 36 or 72 components)."""
 
     from ilqr_tpu_torch.models.rbd import (DUAL_6DOF_ARM_URDF,
+                                           FIVE_6DOF_ARM_URDF,
                                            SIX_DOF_ARM_URDF,
                                            make_rbd_arm_problem)
 
-    if six_dof == "dual":
+    if six_dof in ("dual", "five"):
+        arms = 2 if six_dof == "dual" else 5
         problem = make_rbd_arm_problem(
-            target_pose=[0.0, 0.0, 0.0, 1.0, 1.0, 1.0] + [0.3] * 12,
-            urdf_path=DUAL_6DOF_ARM_URDF)
-        return problem, [0.0, 0.0, 1.0] + [0.0] * 33, [0.02] * 36
+            target_pose=[0.0, 0.0, 0.0, 1.0, 1.0, 1.0] + [0.3] * (6 * arms),
+            urdf_path=(DUAL_6DOF_ARM_URDF if arms == 2
+                       else FIVE_6DOF_ARM_URDF))
+        n = 12 + 12 * arms
+        return problem, [0.0, 0.0, 1.0] + [0.0] * (n - 3), [0.02] * n
     if six_dof:
         problem = make_rbd_arm_problem(
             target_pose=[0.0, 0.0, 0.0, 1.0, 1.0, 1.0] + [0.3] * 6,
@@ -1268,20 +1288,40 @@ def phase_rbd_6dof(case, device):
 
 
 def phase_rbd_dual(case, device):
-    """The free-flying dual arm (n=36, m=18), B=64, T=50, float32, through
+    """The free-flying dual arm (n=36, m=18): every pass launches the
+    batch-last entry of the ``(36, 18)`` instantiation, in ``riccati_xl.cu``.
+    See :func:`free_flying_arm`."""
+
+    return free_flying_arm("rbd_dual", case, "riccati_xl", device)
+
+
+def phase_rbd_five(case, device):
+    """The free-flying five-arm (n=72, m=36), at the dual arm's B, T and
+    budget: every pass launches the batch-last entry of the ``(72, 36)``
+    instantiation, in ``riccati_cluster.cu``, a cluster of blocks a lane.
+    See :func:`free_flying_arm`."""
+
+    return free_flying_arm("rbd_five", case, "riccati_cluster", device)
+
+
+def free_flying_arm(phase, case, source, device):
+    """A free-flying arm at DUAL's B and T (64 and 50), float32, through
     ``make_batch_solver(engine="fused")`` with ``backward_backend="pallas"``:
-    every pass launches the batch-last entry of the ``(36, 18)``
-    instantiation, in ``riccati_xl.cu``.  First the kernel on the local
-    models of an iterate rolled out under small random controls, against
-    the plain version (F32_REL_BOUND_RBD of each output's largest
-    magnitude), timed beside its bound, with its copy path, blocks an SM
-    and shared bytes.  Then the solve, ``max_iter`` cut
-    from the first pass's time to DUAL_BUDGET_S (printed), the launches set
-    to 0 before and read after; and the same solve with ``"scan"``: status
-    equal on every lane, ``us`` of the lanes on the same iteration count
-    within the 6-DoF bars (median lane F32_SOLVE_MEDIAN_BOUND_RBD, worst
-    lane and worst cost F32_SOLVE_COST_BOUND_RBD).  Returns ``({kernel:
-    launches}, the kernel's row)``."""
+    every pass launches the batch-last entry of the arm's instantiation.
+    First the kernel on the local models of an iterate rolled out under
+    small random controls, against the plain version (F32_REL_BOUND_RBD of
+    each output's largest magnitude), timed beside its bound, with its copy
+    path, shared bytes, and blocks an SM (``riccati_xl.cu``) or blocks a
+    lane and clusters resident (``riccati_cluster.cu``).  Then the solve,
+    ``max_iter`` cut from the first pass's time to DUAL_BUDGET_S (printed; a
+    rollout's time stands for the pass's where it alone leaves
+    ``min_iter``),
+    the launches set to 0 before and read after; and the same solve with
+    ``"scan"``: status equal on every lane, ``us`` of the lanes on the same
+    iteration count within the 6-DoF bars (median lane
+    F32_SOLVE_MEDIAN_BOUND_RBD, worst lane and worst cost
+    F32_SOLVE_COST_BOUND_RBD).  Returns ``({kernel: launches}, the kernel's
+    row)``."""
 
     from ilqr_tpu_torch import batched
     from ilqr_tpu_torch.ops import _build, cuda_riccati
@@ -1291,9 +1331,10 @@ def phase_rbd_dual(case, device):
 
     problem = case[0]
     n, m = problem.state_dim, problem.control_dim
-    B, T = DUAL["B"], DUAL["T"]
+    spec, budget_s = DUAL, DUAL_BUDGET_S
+    B, T = spec["B"], spec["T"]
     name = cuda_riccati.kernel_name(n, m, torch.float32)
-    assert cuda_riccati.route(n, m) == ("riccati_xl", n, m)
+    assert cuda_riccati.route(n, m) == (source, n, m)
 
     models = rbd_local_models(case, B, T, torch.float32, 90, device)[0]
     reg = torch.full((B,), 1.0, dtype=torch.float32, device=device)
@@ -1313,7 +1354,8 @@ def phase_rbd_dual(case, device):
                plan_bytes=(_build.load(library)
                            .riccati_cuda_instance_shared_bytes()),
                resident_blocks_per_sm=resident_blocks(_build, library,
-                                                      "riccati_xl"),
+                                                      source),
+               cluster=cluster_info(_build, library, source),
                ms=device_time(lambda: riccati_scan_cuda_bl(*models, reg), 30),
                call_ms=sync_time(lambda: riccati_scan_cuda_bl(*models, reg),
                                  30),
@@ -1323,9 +1365,12 @@ def phase_rbd_dual(case, device):
 
     x0s, us0 = rbd_inputs(case, B, T, torch.float32, 81, device)
     us_bl = us0.movedim(0, -1).contiguous()
-    cost0 = batched.total_cost_bl(
-        problem, batched.rollout_bl(problem, x0s.T.contiguous(), us_bl),
-        us_bl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs0 = batched.rollout_bl(problem, x0s.T.contiguous(), us_bl)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    cost0 = batched.total_cost_bl(problem, xs0, us_bl)
 
     def run(cfg):
         solve_fn = make_batch_solver(problem, cfg, engine="fused",
@@ -1338,12 +1383,22 @@ def phase_rbd_dual(case, device):
 
     # A later pass climbs more rungs than the first: count it 2.5 times,
     # and the scan twin as one more solve.
-    first = time_one_pass(problem, rbd_config(DUAL["max_iter"], T), x0s, us0)
-    max_iter = max(DUAL["min_iter"], min(DUAL["max_iter"], int(
-        DUAL_BUDGET_S / (2 * 2.5 * sum(first.values())))))
-    if max_iter < DUAL["max_iter"]:
-        print(f"chip_smoke: rbd_dual: max_iter cut from {DUAL['max_iter']} "
-              f"to {max_iter} by the {DUAL_BUDGET_S} s budget",
+    def cap(pass_s):
+        return max(spec["min_iter"], min(spec["max_iter"], int(
+            budget_s / (2 * 2.5 * pass_s))))
+
+    # A pass rolls out at least once: where one rollout alone caps max_iter
+    # at min_iter, no pass is spent on timing the first.
+    first = (time_one_pass(problem, rbd_config(spec["max_iter"], T), x0s,
+                           us0, xs0)
+             if cap(rollout_s) > spec["min_iter"] else None)
+    del xs0
+    max_iter = cap(rollout_s if first is None else sum(first.values()))
+    if max_iter < spec["max_iter"]:
+        print(f"chip_smoke: {phase}: max_iter cut from {spec['max_iter']} "
+              f"to {max_iter} by the {budget_s} s budget"
+              + (f" (one rollout took {rollout_s:.1f} s; the first pass is "
+                 "not timed)" if first is None else ""),
               file=sys.stderr, flush=True)
     cfg = rbd_config(max_iter, T)
 
@@ -1363,10 +1418,11 @@ def phase_rbd_dual(case, device):
     assert torch.equal(res.status, ref.status), (res.status, ref.status)
     scan = compare_backends(res, ref, F32_SOLVE_COST_BOUND_RBD)
 
-    emit(phase="rbd_dual", B=B, T=T, n=n, m=m, dtype="float32",
-         source=XL_SOURCE, max_iter=max_iter,
-         max_iter_config=DUAL["max_iter"], budget_s=DUAL_BUDGET_S,
-         first_pass_s=first, passes=passes, launches=counts,
+    emit(phase=phase, B=B, T=T, n=n, m=m, dtype="float32",
+         source=SOURCE_FILES[source], max_iter=max_iter,
+         max_iter_config=spec["max_iter"], budget_s=budget_s,
+         rollout_s=rollout_s, first_pass_s=first, passes=passes,
+         launches=counts,
          solve_s=solve_s, lanes_by_status=by_status,
          mean_iterations=float(res.iterations.float().mean()),
          mean_cost_ratio=float((res.cost / cost0).mean()),
@@ -1399,8 +1455,9 @@ VMAP_BUDGET_S = 60.0
 # bench.py's MPC shapes: --config mpc (one scenario) and --config mpc_batch.
 MPC = dict(B=1024, H=50, n_steps=50)
 # Seconds each MPC run may take; n_steps is cut to fit (and the cut printed).
-# Cut from 30 s with rbd_dual, so that the script fits its time.
-MPC_BUDGET_S = 20.0
+# Cut from 30 s with rbd_dual, and to 10 s with rbd_five, so that the script
+# fits its time.
+MPC_BUDGET_S = 10.0
 # Float64 `us` of the per-scenario solve, card (kernel) against CPU (plain
 # version), relative to max|us|.
 F64_VMAP_PARITY_REL_BOUND = 1e-10
@@ -1735,7 +1792,7 @@ def phase_mpc(problem, device):
 # Files the new phases write (git-ignored, inside the checkout).
 SCRATCH = "build/chip_smoke"
 MPC_CHUNKED = dict(B=1024, H=50, step_chunk=2)
-MPC_CHUNKED_BUDGET_S = 20.0
+MPC_CHUNKED_BUDGET_S = 10.0
 # bench.py --config long_horizon: B=256, T=1000, max_iter=15, three backends.
 LONG = dict(B=256, T=1000, max_iter=15)
 # Seconds the three long-horizon solves may take together; caps max_iter.
@@ -2411,15 +2468,29 @@ def phase_trace_profile(problem, device):
 # only, the dual arm with the index coordinate (37, 18), the first shape
 # past (32, 16), (33, 16), and more controls than states at the ceiling's
 # m, (20, 32).
+# Past (64, 32), riccati_cluster.cu (a cluster of blocks a lane): the
+# free-flying five-arm (72, 36), launched by phase rbd_five, and the plan's
+# ceiling (128, 64), both types; float32 only, a 26-joint humanoid under
+# al_solve (65, 32), the five-arm under al_solve (73, 36), m past 32 with a
+# small n (20, 40), and (96, 48).
 NEW_SHAPES = ((17, 8), (7, 3), (6, 11), (3, 1), (5, 5), (25, 12), (32, 16),
               (29, 5), (10, 13), (36, 18), (64, 32), (37, 18), (33, 16),
-              (20, 32))
-F32_ONLY_SHAPES = ((37, 18), (33, 16), (20, 32))
+              (20, 32), (72, 36), (128, 64), (65, 32), (73, 36), (20, 40),
+              (96, 48))
+F32_ONLY_SHAPES = ((37, 18), (33, 16), (20, 32), (65, 32), (73, 36),
+                   (20, 40), (96, 48))
 CHECK_ONLY_SHAPES = ((7, 3), (6, 11), (3, 1), (5, 5), (32, 16), (29, 5),
-                     (10, 13), (64, 32), (37, 18), (33, 16), (20, 32))
-# The rows at m = 32 run at T_m32: there the plain version takes about 22 s
-# a call at T=100 on an H100 (the cut is printed).
+                     (10, 13), (64, 32), (37, 18), (33, 16), (20, 32),
+                     (128, 64), (65, 32), (73, 36), (20, 40), (96, 48))
+# The rows at m >= 32 run at T_m32: at (64, 32) the plain version took about
+# 22 s a call at T=100 on an H100 (the cut is printed).
 SHAPES = dict(B=256, T=100, T_m32=25)
+
+
+def shape_T(m):
+    """The horizon phase ``shapes`` runs a shape with ``m`` controls at."""
+
+    return SHAPES["T_m32"] if m >= 32 else SHAPES["T"]
 # The fixed instantiations whose outputs are hashed, on seeded inputs of
 # this size: the same hashes on the tree before the kernel learned to pad
 # show that their bits did not move.  With them, riccati_large.cu's al_6dof
@@ -2431,7 +2502,8 @@ HASH = dict(B=64, T=50, seed=123)
 # al_solve of an arm with a joint-velocity cap, float32, through the
 # per-scenario engine: inner solves of at most 3 passes (cut from
 # AL_ARM_INNER_UNCUT with rbd_dual, so that the script fits its time; the
-# cut is printed) with a 4-rung ladder
+# cut is printed; at 2 the budget below affords more outer iterations and
+# the phases take longer) with a 4-rung ladder
 # and Tassa regularization (rbd_config), max_outer cut so that the kernel run
 # and its scan twin fit AL_ARM_BUDGET_S.  Phase al_rbd runs it on the RBD
 # 2-DoF arm (the kernel at (17, 8)), phase al_6dof on the 6-DoF arm
@@ -2477,17 +2549,22 @@ def synthetic_models(n, m, B, T, seed, device, dtype=torch.float64):
     def randn(*shape):
         return torch.randn(shape, generator=gen, **f64)
 
-    def spd(k, scale):
-        X = randn(T, k, k, B) / k ** 0.5
+    def spd(k, scale, steps=T):
+        X = randn(steps, k, k, B) / k ** 0.5
         return (torch.einsum("tikb,tjkb->tijb", X, X) * scale
                 + torch.eye(k, **f64)[None, :, :, None])
 
+    # QN is the first of T draws of spd(n, 1.0), the last draw of all: the
+    # first n * n * B normals of the stream, a whole number of the
+    # generator's blocks of 16, are the same whether T or one matrix a
+    # lane is drawn, so one is drawn where that holds.
+    qn_steps = 1 if (n * n * B) % 16 == 0 else T
     models = (0.9 * torch.eye(n, **f64)[None, :, :, None]
               + 0.1 * randn(T, n, n, B) / n ** 0.5,
               0.3 * randn(T, n, m, B), 0.1 * randn(T, n, B),
               0.1 * randn(T, m, B), 0.1 * spd(n, 0.5),
               cross * randn(T, m, n, B), spd(m, 0.2), randn(n, B),
-              spd(n, 1.0)[0])
+              spd(n, 1.0, qn_steps)[0])
     return tuple(x.to(dtype).to(device).contiguous() for x in models)
 
 
@@ -2527,6 +2604,21 @@ def instantiation_hashes(device):
                 out[f"{cuda_riccati.kernel_name(n, m, dtype)}:{entry}"] = (
                     h.hexdigest())
     return out
+
+
+def cluster_info(_build, library, source):
+    """``{"blocks_a_lane": C, "clusters_resident": {"batch_last": k,
+    "batch_first": k}}`` of a ``riccati_cluster.cu`` instantiation: the
+    blocks of a lane's cluster and the clusters resident on this card at
+    once, as ``cudaOccupancyMaxActiveClusters`` counts them (None for the
+    other sources)."""
+
+    if source != "riccati_cluster":
+        return None
+    lib = _build.load(library)
+    fn = lib.riccati_cuda_instance_clusters_resident
+    return {"blocks_a_lane": lib.riccati_cuda_instance_cluster_size(),
+            "clusters_resident": {"batch_last": fn(0), "batch_first": fn(1)}}
 
 
 def resident_blocks(_build, library, source):
@@ -2597,9 +2689,9 @@ def large_times(device):
 # seeded inputs, and rbd_dual's launch, (36, 18) float32 at DUAL's B=64,
 # T=50.
 XL_TIMES = tuple(
-    ((n, m), SHAPES["B"], SHAPES["T_m32"] if m == 32 else SHAPES["T"],
-     shape_types(n, m))
-    for n, m in NEW_SHAPES if n > 32 or m > 16) + (
+    ((n, m), SHAPES["B"], shape_T(m), shape_types(n, m))
+    for n, m in NEW_SHAPES
+    if (n > 32 or m > 16) and n <= 64 and m <= 32) + (
     ((36, 18), DUAL["B"], DUAL["T"], (torch.float32,)),)
 
 
@@ -2680,12 +2772,15 @@ def phase_shapes(device, built):
     B = SHAPES["B"]
     rows_bl, rows_bf = {}, {}
     print(f"chip_smoke: shapes: T cut from {SHAPES['T']} to "
-          f"{SHAPES['T_m32']} at m = 32 (the plain version's time)",
+          f"{SHAPES['T_m32']} at m >= 32 (the plain version's time)",
           file=sys.stderr, flush=True)
     for n, m in NEW_SHAPES:
-        T = SHAPES["T_m32"] if m == 32 else SHAPES["T"]
+        T = shape_T(m)
+        # Drawn once a shape in float64 (the float32 row is its cast: the
+        # same values synthetic_models(..., dtype) gives).
+        f64 = synthetic_models(n, m, B, T, 7 * n + m, device)
         for dtype in shape_types(n, m):
-            bl = synthetic_models(n, m, B, T, 7 * n + m, device, dtype)
+            bl = tuple(x.to(dtype).contiguous() for x in f64)
             bf = tuple(x.movedim(-1, 0).contiguous() for x in bl)
             reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
             name = cuda_riccati.kernel_name(n, m, dtype)
@@ -2719,6 +2814,7 @@ def phase_shapes(device, built):
                 plan_bytes=plan_bytes,
                 resident_blocks_per_sm=resident_blocks(_build, library,
                                                        source),
+                cluster=cluster_info(_build, library, source),
                 ptxas=ptxas_summary(_build, [library]),
                 library=library,
                 nvcc_s=built.get(library), max_abs_err=max_abs,
@@ -2727,20 +2823,32 @@ def phase_shapes(device, built):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None,
                 check_only=(n, m) in CHECK_ONLY_SHAPES)
+            # 20 calls a timing, fewer where one call passes 10 ms (about
+            # 200 ms of launches a timing; at least 3).
+            reps = max(3, min(20, int(200.0 / max(
+                device_time(lambda: riccati_scan_cuda_bl(*bl, reg), 1),
+                1e-3))))
+            if reps < 20:
+                print(f"chip_smoke: shapes: {name}: timing calls cut from 20 "
+                      f"to {reps} (about 200 ms of launches)",
+                      file=sys.stderr, flush=True)
             rows_bl[name] = dict(
-                common, copy_path=path_bl,
-                ms=device_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20),
-                call_ms=sync_time(lambda: riccati_scan_cuda_bl(*bl, reg), 20))
+                common, copy_path=path_bl, timing_reps=reps,
+                ms=device_time(lambda: riccati_scan_cuda_bl(*bl, reg), reps),
+                call_ms=sync_time(lambda: riccati_scan_cuda_bl(*bl, reg),
+                                  reps))
             if source in ONE_LANE_A_BLOCK and dtype == torch.float32:
                 # Cycles a step by stage, from the stage-clock build.
                 rows_bl[name]["stage_cycles"] = (
                     cuda_riccati.riccati_stage_clocks(bl, reg))
             rows_bf[name] = dict(
                 common, copy_path=path_bf, equal_to_batch_last=True,
+                timing_reps=reps,
                 ms=device_time(lambda: riccati_scan_cuda_batched(*bf, reg),
-                               20),
+                               reps),
                 batch_last_ms=rows_bl[name]["ms"])
             del bl, bf, got, got_bf, plain
+        del f64
     emit(phase="shapes", rows_batch_last=rows_bl, rows_batch_first=rows_bf,
          f64_rtol=1e-10, f32_rel_bound=F32_REL_BOUND,
          hashes_of_fixed_instantiations=instantiation_hashes(device),
@@ -3175,6 +3283,10 @@ def main():
     launches.update(dual_launches)
     sources.update(dict.fromkeys(dual_rows, XL_SOURCE))
     rows.update(dual_rows)
+    five_launches, five_rows = phase_rbd_five(rbd_case("five"), device)
+    launches.update(five_launches)
+    sources.update(dict.fromkeys(five_rows, CLUSTER_SOURCE))
+    rows.update(five_rows)
 
     bf_rows = phase_batched_entry(problem, cases, device)
     bf_launches = phase_vmap_solve(problem, solve_cfg, fused, device)

@@ -205,8 +205,7 @@ def derivatives_bl(problem: Problem, xs, us, chunk: int = 0):
 
 
 def _gains_sqrt(H, reg, g, G):
-    L = sm.cholesky_bl(H, reg)
-    return -sm.cho_solve_bl(L, g), -sm.cho_solve_bl(L, G)
+    return sm.cho_solve_gains_bl(sm.cholesky_bl(H, reg), g, G)
 
 
 @highest_precision

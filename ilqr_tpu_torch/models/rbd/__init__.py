@@ -17,6 +17,7 @@ from ilqr_tpu_torch.models.rbd.dynamics import (
 )
 from ilqr_tpu_torch.models.rbd.model import (
     DUAL_6DOF_ARM_URDF,
+    FIVE_6DOF_ARM_URDF,
     SIX_DOF_ARM_URDF,
     TWO_DOF_ARM_URDF,
     make_rbd_dynamics,
@@ -36,6 +37,7 @@ __all__ = [
     "rbd_to_mrp_state",
     "mrp_to_rbd_state",
     "DUAL_6DOF_ARM_URDF",
+    "FIVE_6DOF_ARM_URDF",
     "SIX_DOF_ARM_URDF",
     "TWO_DOF_ARM_URDF",
 ]

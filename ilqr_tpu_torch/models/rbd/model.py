@@ -56,6 +56,10 @@ SIX_DOF_ARM_URDF = os.path.join(ASSET_DIR, "6Dof_arm.urdf")
 # Two 6-DoF arms on one free-flying base (n=36, m=18): 6Dof_arm.urdf's arm
 # and a copy of it whose first joint sits at y = -0.5 (assets/README.md).
 DUAL_6DOF_ARM_URDF = os.path.join(ASSET_DIR, "dual_6Dof_arm.urdf")
+# Five 6-DoF arms on one free-flying base (n=72, m=36): the dual arm and
+# three more copies mounted at (-0.5, 0.5, 0), (-0.5, -0.5, 0) and
+# (0, 0, 0.5) (assets/README.md).
+FIVE_6DOF_ARM_URDF = os.path.join(ASSET_DIR, "five_6Dof_arm.urdf")
 
 def rbd_to_mrp_state(x):
     """[quat(4); rest] → [mrp(3); rest] (RBD_helper_functions.jl:29-33);
@@ -372,7 +376,9 @@ def make_rbd_arm_problem(target_pose: Optional[Sequence[float]] = None,
 
     ``urdf_path=SIX_DOF_ARM_URDF`` with a 12-component ``target_pose`` gives
     the 6-DoF arm (n=24, m=12); ``urdf_path=DUAL_6DOF_ARM_URDF`` with an
-    18-component one the free-flying dual arm (n=36, m=18).
+    18-component one the free-flying dual arm (n=36, m=18);
+    ``urdf_path=FIVE_6DOF_ARM_URDF`` with a 36-component one the
+    free-flying five-arm (n=72, m=36).
 
     With ``analytic_jacobians=True`` (default) the problem carries
     :func:`make_rbd_dynamics_jacobians` as ``dynamics_jacobians`` (the

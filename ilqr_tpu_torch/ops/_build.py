@@ -20,8 +20,9 @@ instantiation of the kernel at any ``(n, m)``: the source compiled with
 exports one generic launcher, ``riccati_cuda_instance``, in place of the
 source's fixed instantiations.  It is built at first use like the others,
 and has its stage-clock build too (``..._clocks``).
-``csrc/riccati_large.cu`` and ``csrc/riccati_xl.cu`` have no fixed
-instantiation: they are built only this way.
+``csrc/riccati_large.cu``, ``csrc/riccati_xl.cu`` and
+``csrc/riccati_cluster.cu`` have no fixed instantiation: they are built
+only this way (the last has no stage-clock build).
 
 The library's name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  The build directory
@@ -49,7 +50,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # One shared library per source with fixed instantiations.
 SOURCES = ("riccati", "riccati_wide")
 # Every source an instantiation library may be built from.
-INSTANCE_SOURCES = SOURCES + ("riccati_large", "riccati_xl")
+INSTANCE_SOURCES = SOURCES + ("riccati_large", "riccati_xl",
+                               "riccati_cluster")
 # The stage-clock builds: library -> (source, extra nvcc flags).
 VARIANTS = {f"{name}_clocks": (name, ("-DRICCATI_STAGE_CLOCKS",))
             for name in SOURCES}

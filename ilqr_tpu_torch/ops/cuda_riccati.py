@@ -8,9 +8,9 @@ prefetched steps, for ``(n, m) = (4, 2)`` and ``(5, 2)`` (the 2-link arm
 under ``al.al_solve``, whose state carries the step index);
 ``csrc/riccati_wide.cu``, a lane
 spread over four warps with its matrices in shared memory and its inputs
-brought in by TMA, for ``(16, 8)`` and ``(24, 12)``; ``csrc/riccati_large.cu``
-and ``csrc/riccati_xl.cu`` for the shapes past the wide plan (below; each
-source says why) — all
+brought in by TMA, for ``(16, 8)`` and ``(24, 12)``; ``csrc/riccati_large.cu``,
+``csrc/riccati_xl.cu`` and ``csrc/riccati_cluster.cu`` for the shapes past
+the wide plan (below; each source says why) — all
 reading either layout in place, selected by a layout argument, built
 at first use by :mod:`ilqr_tpu_torch.ops._build` and called through ctypes.
 It has no gradient (the JAX kernel has none either), so there is no
@@ -27,9 +27,14 @@ logical shape, unpadded — up to ``n <= 32``, ``m <= 16`` (:data:`LARGE_MAX`),
 and ``csrc/riccati_xl.cu`` past that — one lane a block, the inputs
 staged in shared memory or carried in registers a step ahead — up to ``n <=
 64``, ``m <= 32``
-(:data:`XL_MAX`, the largest shape held on the card: the free-flying dual
-arm's ``(36, 18)`` and a humanoid's ``(64, 32)``).  A larger shape raises
-before any ``nvcc`` run.
+(:data:`XL_MAX`, where one lane's step fills a block: the free-flying dual
+arm's ``(36, 18)`` and a humanoid's ``(64, 32)``), and
+``csrc/riccati_cluster.cu`` past that — one lane a thread-block cluster of
+2, 4 or 8 blocks that split its rows and read each other's through
+distributed shared memory — up to ``n <= 128``, ``m <= 64``
+(:data:`CLUSTER_MAX`, the largest shape held on the card: the free-flying
+five-arm's ``(72, 36)``, a humanoid under ``al_solve`` at ``(65, 32)``).  A
+larger shape raises before any ``nvcc`` run.
 
 * :func:`riccati_scan_cuda_bl` — the wrapper.  On CUDA tensors it launches
   the kernel or raises; on CPU tensors it takes the plain version.  It
@@ -40,8 +45,8 @@ before any ``nvcc`` run.
   write batch-first outputs, with no layout copy.  The arithmetic of a lane
   is the same in both layouts, so the two entries agree bit for bit.  Its
   launches are counted apart (:data:`batched_launch_counts`).
-* :data:`last_launch` — the kernel, layout and copy path of the last
-  launch, as the library reports them.
+* :data:`last_launch` — the kernel, layout, copy path and blocks a lane
+  (``cluster_size``) of the last launch, as the library reports them.
 * :func:`riccati_stage_clocks` — cycles a step by stage, from a second
   build of a source with ``-DRICCATI_STAGE_CLOCKS`` (never on the main
   path).
@@ -105,10 +110,16 @@ WIDE_MAX = (24, 12)
 # The largest (n, m) riccati_large.cu serves, unpadded (its plan's
 # static_asserts own the exact limit).
 LARGE_MAX = (32, 16)
-# The largest (n, m) riccati_xl.cu serves, unpadded: the largest shape held
-# on the card.  There a lane's step fills one block's shared memory (204,672
-# of 232,448 bytes in float64); a larger lane needs a cluster of blocks.
+# The largest (n, m) riccati_xl.cu serves, unpadded.  There a lane's step
+# fills one block's shared memory (204,672 of 232,448 bytes in float64); a
+# larger lane takes a cluster of blocks.
 XL_MAX = (64, 32)
+# The largest (n, m) riccati_cluster.cu serves: the largest shape held on the
+# card.  Its lane is a cluster of the fewest of 2, 4, 8 blocks whose share of
+# the step fits a block: at (128, 64) 224,656 bytes a block of 2 in float32,
+# 163,808 a block of 8 in float64 (a cluster of 8, the portable limit, would
+# hold up to (152, 76) in float64).
+CLUSTER_MAX = (128, 64)
 
 # Launches per kernel name: one is added where a wrapper launches the
 # kernel, and nowhere else — by the batch-last entry to ``launch_counts``,
@@ -130,9 +141,13 @@ BATCH_LAST, BATCH_FIRST = 0, 1
 # where the ring also costs no block an SM; batch-last TMA boxes of 16 bytes
 # of lanes), else carries each thread's first terms a step ahead in
 # registers (path 4, also batch-last when a row of B lanes is not whole
-# 16-byte granules).
-COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16",
+# 16-byte granules); riccati_cluster.cu reads every input where it lies in
+# device memory (path 3).
+COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16", 3: "direct",
               4: "register_prefetch"}
+# What riccati_cluster.cu's launcher returns when no cluster of its plan
+# fits on the card.
+NO_CLUSTER_FITS = 10000
 
 # Kernel name, layout and copy path of the last launch (either entry, or
 # the stage-clock build).
@@ -166,14 +181,16 @@ def route(n: int, m: int) -> Tuple[str, int, int]:
         return "riccati_wide", N, M
     if n <= LARGE_MAX[0] and m <= LARGE_MAX[1]:
         return "riccati_large", n, m
-    if n > XL_MAX[0] or m > XL_MAX[1]:
+    if n <= XL_MAX[0] and m <= XL_MAX[1]:
+        return "riccati_xl", n, m
+    if n > CLUSTER_MAX[0] or m > CLUSTER_MAX[1]:
         raise NotImplementedError(
-            f"the fused Riccati kernel serves n <= {XL_MAX[0]} and m <= "
-            f"{XL_MAX[1]}: (n, m) = ({n}, {m}) is past the largest shape "
-            f"served, {XL_MAX} in riccati_xl.cu, where one lane's step fills "
-            f"a block's shared memory (a larger lane needs a cluster of "
-            f"blocks); use backward_backend='scan'")
-    return "riccati_xl", n, m
+            f"the fused Riccati kernel serves n <= {CLUSTER_MAX[0]} and m <= "
+            f"{CLUSTER_MAX[1]}: (n, m) = ({n}, {m}) is past the largest shape "
+            f"served, {CLUSTER_MAX} in riccati_cluster.cu, a cluster of 2 to "
+            f"8 blocks a lane (a cluster of 8, the portable limit, holds up "
+            f"to (152, 76) in float64); use backward_backend='scan'")
+    return "riccati_cluster", n, m
 
 
 def kernel_name(n: int, m: int, dtype: torch.dtype) -> str:
@@ -280,7 +297,9 @@ def _launch(arrays, reg, symmetrize, layout, clocks=None):
         duffs, Ks = torch.empty((B, T, m), **kw), torch.empty((B, T, m, n), **kw)
     dv1, dv2 = torch.empty((B,), **kw), torch.empty((B,), **kw)
 
-    path = ctypes.c_int(-1)
+    # The copy path, then the blocks a lane (riccati_cluster.cu alone
+    # writes the second: the other sources run a lane in one block).
+    path = (ctypes.c_int * 2)(-1, 1)
     library, symbol = library_and_symbol(n, m, As.dtype)
     library += "_clocks" if clocks is not None else ""
     fn = _launcher(symbol, library)
@@ -290,12 +309,19 @@ def _launch(arrays, reg, symmetrize, layout, clocks=None):
         err = fn(ptrs, arrays[7].data_ptr(), arrays[8].data_ptr(),
                  reg_b.data_ptr(), duffs.data_ptr(), Ks.data_ptr(),
                  dv1.data_ptr(), dv2.data_ptr(), T, B, int(bool(symmetrize)),
-                 layout, ctypes.byref(path),
+                 layout, path,
                  None if clocks is None else clocks.data_ptr(), stream)
+    if err == NO_CLUSTER_FITS:
+        fn = _library(library)
+        raise RuntimeError(
+            f"{name}: no cluster of {fn.riccati_cuda_instance_cluster_size()} "
+            f"blocks of {fn.riccati_cuda_instance_shared_bytes()} bytes of "
+            f"shared memory fits on {torch.cuda.get_device_name(As.device)} "
+            f"((n, m) = ({n}, {m}))")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     last_launch.update(kernel=name, layout=layout,
-                       copy_path=COPY_PATHS[path.value])
+                       copy_path=COPY_PATHS[path[0]], cluster_size=path[1])
     return name, (duffs, Ks, dv1, dv2)
 
 
@@ -403,7 +429,11 @@ def riccati_stage_clocks(arrays, reg, layout=BATCH_LAST):
 
     T, n, m, B = _shapes(*arrays, layout)
     name = kernel_name(n, m, arrays[0].dtype)
-    stages = STAGES[route(n, m)[0]]
+    source = route(n, m)[0]
+    if source not in STAGES:
+        raise NotImplementedError(f"{name}: csrc/{source}.cu has no "
+                                  "stage-clock build")
+    stages = STAGES[source]
     clocks = torch.zeros((B, len(stages)), dtype=torch.int64,
                          device=arrays[0].device)
     _launch(arrays, reg, True, layout, clocks=clocks)
@@ -451,7 +481,7 @@ def riccati_loop_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,
 
 def _gains_rsqrt(H, reg, g, G):
     L, inv_diag = sm.cholesky_rsqrt_bl(H, reg)
-    return (-sm.cho_solve_bl(L, g, inv_diag), -sm.cho_solve_bl(L, G, inv_diag))
+    return sm.cho_solve_gains_bl(L, g, G, inv_diag)
 
 
 def riccati_scan_plain_bl(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN, reg,

@@ -97,32 +97,35 @@ def transpose_bl(A):
 
 def _cholesky_unrolled_bl(A, reg, rsqrt: bool):
     """Unrolled Cholesky–Crout of ``A + reg I``: ``(L [m, m, B], inv_diag
-    [m, B])`` with ``inv_diag = 1 / diag(L)``."""
+    [m, B])`` with ``inv_diag = 1 / diag(L)``.
+
+    Entry ``(i, j)`` is ``A[i, j] - L[i, 0] L[j, 0] - L[i, 1] L[j, 1] - ...``
+    in that order, one rounding a product and a difference, then times the
+    pivot's reciprocal; the entries below a pivot go as one vector op a
+    term, so that a column costs ``2 j`` ops and not ``2 j (m - j)``."""
 
     m = A.shape[0]
-    L = [[None] * m for _ in range(m)]
+    cols = []   # column k of L, from its diagonal down: [m - k, B]
     inv_diag = [None] * m
     for j in range(m):
-        s = A[j, j, :] + reg
+        d = A[j, j, :] + reg
+        s = A[j + 1:, j, :]
         for k in range(j):
-            s = s - L[j][k] * L[j][k]
+            c = cols[k][j - k:]   # L[j:, k]
+            d = d - c[0] * c[0]
+            s = s - c[1:] * c[0]
         if rsqrt:
-            inv_d = torch.rsqrt(s)
-            L[j][j] = s * inv_d
+            inv_d = torch.rsqrt(d)
+            diag = d * inv_d
         else:
-            L[j][j] = torch.sqrt(s)
-            inv_d = 1.0 / L[j][j]
+            diag = torch.sqrt(d)
+            inv_d = 1.0 / diag
         inv_diag[j] = inv_d
-        for i in range(j + 1, m):
-            s = A[i, j, :]
-            for k in range(j):
-                s = s - L[i][k] * L[j][k]
-            L[i][j] = s * inv_d
-    zero = torch.zeros_like(A[0, 0, :])
-    L = torch.stack([
-        torch.stack([L[i][j] if j <= i else zero for j in range(m)], dim=0)
-        for i in range(m)
-    ], dim=0)
+        cols.append(torch.cat([diag[None], s * inv_d], dim=0))
+    L = torch.zeros((m, m) + tuple(cols[0].shape[1:]), dtype=cols[0].dtype,
+                    device=A.device)
+    for j in range(m):
+        L[j:, j] = cols[j]
     return L, torch.stack(inv_diag, dim=0)
 
 
@@ -160,12 +163,14 @@ def cho_solve_bl(L, b, inv_diag=None):
             return s / lane(L[i, i])
         return s * lane(inv_diag[i])
 
+    # Forward: once y_i is known it leaves every row below it at once, so
+    # row i still subtracts L[i, 0] y_0, L[i, 1] y_1, ... in that order.
     ys = []
+    rest = b
     for i in range(m):
-        s = b[i]
-        for j in range(i):
-            s = s - lane(L[i, j]) * ys[j]
-        ys.append(over_diag(s, i))
+        ys.append(over_diag(rest[0], i))
+        col = L[i + 1:, i]
+        rest = rest[1:] - (col[:, None] if matrix_rhs else col) * ys[i]
     xs = [None] * m
     for i in reversed(range(m)):
         s = ys[i]
@@ -173,6 +178,15 @@ def cho_solve_bl(L, b, inv_diag=None):
             s = s - lane(L[j, i]) * xs[j]
         xs[i] = over_diag(s, i)
     return torch.stack(xs, dim=0)
+
+
+def cho_solve_gains_bl(L, g, G, inv_diag=None):
+    """``(-x, -X)`` for ``(L L^T) [x | X] = [g | G]``, ``g [m, B]``,
+    ``G [m, n, B]``: :func:`cho_solve_bl` of both in one pass, ``g`` as
+    column ``n`` (the same operations on each column as two solves)."""
+
+    X = cho_solve_bl(L, torch.cat([G, g[:, None]], dim=1), inv_diag)
+    return -X[:, -1], -X[:, :-1]
 
 
 def solve_psd_bl(A, b, reg=0.0):

@@ -106,13 +106,15 @@ def _random_models(n, m, B, T, dtype=torch.float64):
 def test_wrapper_raises_on_missing_instantiation():
     """A shape or type with no kernel: the launcher table says so by name.
     A shape outside the fixed table is an instantiation built at first use
-    up to n = 64, m = 32; a larger one has none.  On CPU tensors the wrapper
-    needs no instantiation — it runs the plain version at any (n, m), as the
-    JAX package runs its kernel in interpret mode there — and it launches
-    nothing."""
+    up to n = 128, m = 64; a larger one has none.  On CPU tensors the
+    wrapper needs no instantiation — it runs the plain version at any (n,
+    m), as the JAX package runs its kernel in interpret mode there — and it
+    launches nothing."""
 
-    with pytest.raises(NotImplementedError, match=r"\(65, 32\)"):
-        cuda_riccati.kernel_name(65, 32, torch.float64)
+    with pytest.raises(NotImplementedError, match=r"\(129, 64\)"):
+        cuda_riccati.kernel_name(129, 64, torch.float64)
+    assert cuda_riccati.kernel_name(65, 32, torch.float64) == (
+        "riccati_cuda_65x32_f64")
     assert cuda_riccati.kernel_name(3, 1, torch.float64) == (
         "riccati_cuda_3x1_f64")
     assert cuda_riccati.kernel_name(25, 12, torch.float64) == (

@@ -25,8 +25,9 @@ past the padded ``(24, 12)``, ``riccati_large.cu``), float64, CPU.
   and ``(10, 13)``, which pad past ``(24, 12)``, go to
   ``riccati_large.cu`` unpadded; ``(33, 12)``, ``(25, 17)``, ``(24, 24)``,
   ``(33, 1)`` and ``(40, 20)``, past ``(32, 16)``, to ``riccati_xl.cu``
-  unpadded; shapes past ``(64, 32)`` raise naming that ceiling before any
-  ``nvcc`` run.
+  unpadded; ``(65, 1)``, ``(1, 33)`` and ``(80, 40)``, past ``(64, 32)``,
+  to ``riccati_cluster.cu``; shapes past ``(128, 64)`` raise naming that
+  ceiling before any ``nvcc`` run.
 """
 
 import jax.numpy as jnp
@@ -224,12 +225,22 @@ def test_routing():
             assert cuda_riccati.library_and_symbol(n, m, dtype) == (
                 f"riccati_xl_{n}x{m}_{tag}", "riccati_cuda_instance")
     assert cuda_riccati.XL_MAX == (64, 32)
-    # Past (64, 32), the largest shape held on the card: refused before any
-    # nvcc run, in either type, with the ceiling named.
+    # Past (64, 32), up to (128, 64): riccati_cluster.cu, a cluster of
+    # blocks a lane, at the logical shape.
     for n, m in ((65, 1), (1, 33), (80, 40)):
+        assert cuda_riccati.route(n, m) == ("riccati_cluster", n, m)
+        for dtype, tag in ((f32, "f32"), (f64, "f64")):
+            assert cuda_riccati.kernel_name(n, m, dtype) == (
+                f"riccati_cuda_{n}x{m}_{tag}")
+            assert cuda_riccati.library_and_symbol(n, m, dtype) == (
+                f"riccati_cluster_{n}x{m}_{tag}", "riccati_cuda_instance")
+    assert cuda_riccati.CLUSTER_MAX == (128, 64)
+    # Past (128, 64), the largest shape held on the card: refused before any
+    # nvcc run, in either type, with the ceiling named.
+    for n, m in ((129, 1), (1, 65), (160, 80)):
         for dtype in (f32, f64):
             with pytest.raises(NotImplementedError,
-                               match=r"n <= 64 and m <= 32.*\(64, 32\)"):
+                               match=r"n <= 128 and m <= 64.*\(128, 64\)"):
                 cuda_riccati.kernel_name(n, m, dtype)
     with pytest.raises(NotImplementedError, match="float16"):
         cuda_riccati.kernel_name(4, 2, torch.float16)
