@@ -8,6 +8,8 @@
                                             # device times (of the port in ROOT)
     python3 chip_smoke.py --xl-times [ROOT]   # only riccati_xl.cu's device
                                             # times and stage clocks (ditto)
+    python3 chip_smoke.py --cluster-times [ROOT]   # the same for
+                                            # riccati_cluster.cu (ditto)
 
 Needs one CUDA card (written for an H100, ``sm_90a``) and ``nvcc``; with no
 card it exits non-zero and prints no result.  It imports nothing of JAX and
@@ -215,6 +217,11 @@ types) of the port in ROOT (an older tree unpacked beside this one, as for
 ``--xl-times [ROOT]`` does the same for the ``riccati_xl.cu`` rows of
 XL_TIMES (the shapes of ``shapes`` that route there and ``rbd_dual``'s
 launch), with each entry's stage clocks, copy path and output hash.
+``--cluster-times [ROOT]`` does the same for the ``riccati_cluster.cu`` rows
+of CLUSTER_TIMES (the shapes of ``shapes`` that route there, in both types,
+and ``rbd_five``'s launch), with the blocks a lane and the clusters
+resident, and the stage clocks where the tree has a stage-clock build of
+that source.  Both are ``source_times``.
 
 Then one line with every kernel's numbers (the batch-first entry in rows of
 its own, at each instantiation its path launched; the instantiations of
@@ -2695,30 +2702,38 @@ XL_TIMES = tuple(
     ((36, 18), DUAL["B"], DUAL["T"], (torch.float32,)),)
 
 
-def xl_times(device):
-    """Device time (ms) of both entries of every ``riccati_xl.cu`` row of
-    XL_TIMES, with the cycles a step by stage of each entry (its
-    stage-clock build), the copy path each entry took, the blocks an SM,
-    the shared bytes the source reckons, ``ptxas``' registers and spills
-    and a sha256 of each entry's outputs; then the seconds it all took.
-    Uses only what every tree of the port since that source came has, so
-    that the same function times an older tree's plan: ``python3
-    chip_smoke.py --xl-times ROOT``."""
+def source_times(device, rows, source):
+    """Device time (ms) of both entries of every row ``((n, m), B, T,
+    types)`` of ``rows`` (XL_TIMES, CLUSTER_TIMES), all of one ``source``,
+    with the copy path each entry took and a sha256 of each entry's outputs,
+    the shared bytes the source reckons, the blocks an SM
+    (``riccati_xl.cu``) or the blocks a lane and the clusters resident
+    (``riccati_cluster.cu``), ``ptxas``' registers and spills, and the
+    cycles a step by stage of each entry where the tree's
+    ``cuda_riccati.STAGES`` names the source (a stage-clock build); then the
+    seconds it all took.  A row's timing takes 20 calls, fewer where one
+    call passes 10 ms (about 200 ms of launches; at least 3).  Uses only
+    what every tree of the port since the source came has, so that the same
+    function times an older tree's plan: ``python3 chip_smoke.py
+    --xl-times ROOT`` or ``--cluster-times ROOT``."""
 
     import hashlib
 
     from ilqr_tpu_torch.ops import _build, cuda_riccati
 
     t0 = time.perf_counter()
+    clocked = source in cuda_riccati.STAGES
     libraries = sorted({cuda_riccati.library_and_symbol(n, m, dtype)[0]
-                        for (n, m), _, _, types in XL_TIMES
-                        for dtype in types})
-    _build.build(libraries + [f"{name}_clocks" for name in libraries])
+                        for (n, m), _, _, types in rows for dtype in types})
+    _build.build(libraries + ([f"{name}_clocks" for name in libraries]
+                              if clocked else []))
     build_s = time.perf_counter() - t0
     out = {}
-    for (n, m), B, T, types in XL_TIMES:
+    for (n, m), B, T, types in rows:
+        # Drawn once a shape in float64, as phase shapes draws them.
+        f64 = synthetic_models(n, m, B, T, 7 * n + m, device)
         for dtype in types:
-            bl = synthetic_models(n, m, B, T, 7 * n + m, device, dtype)
+            bl = tuple(x.to(dtype).contiguous() for x in f64)
             bf = tuple(x.movedim(-1, 0).contiguous() for x in bl)
             reg = torch.logspace(-3, 0, B, dtype=dtype, device=device)
             name = cuda_riccati.kernel_name(n, m, dtype)
@@ -2726,8 +2741,8 @@ def xl_times(device):
             row = dict(
                 shared_bytes=(_build.load(library)
                               .riccati_cuda_instance_shared_bytes()),
-                resident_blocks_per_sm=resident_blocks(_build, library,
-                                                       "riccati_xl"),
+                resident_blocks_per_sm=resident_blocks(_build, library, source),
+                cluster=cluster_info(_build, library, source),
                 ptxas=ptxas_summary(_build, [library]))
             for entry, fn, arrays, layout in (
                     ("batch_last", cuda_riccati.riccati_scan_cuda_bl, bl,
@@ -2738,15 +2753,32 @@ def xl_times(device):
                 h = hashlib.sha256()
                 for x in outs:
                     h.update(x.contiguous().cpu().numpy().tobytes())
+                path = last_copy_path()
+                reps = max(3, min(20, int(200.0 / max(
+                    device_time(lambda: fn(*arrays, reg), 1), 1e-3))))
                 row[entry] = dict(
-                    ms=device_time(lambda: fn(*arrays, reg), 20),
-                    copy_path=last_copy_path(), sha256=h.hexdigest(),
-                    stage_cycles=cuda_riccati.riccati_stage_clocks(
-                        arrays, reg, layout))
+                    ms=device_time(lambda: fn(*arrays, reg), reps),
+                    timing_reps=reps, copy_path=path, sha256=h.hexdigest())
+                if clocked:
+                    row[entry]["stage_cycles"] = (
+                        cuda_riccati.riccati_stage_clocks(arrays, reg,
+                                                          layout))
             out[f"{name}:B{B}_T{T}"] = row
             del bl, bf
+        del f64
     return dict(rows=out, build_s=build_s,
                 seconds=time.perf_counter() - t0)
+
+
+# The instantiations of riccati_cluster.cu that --cluster-times times: those
+# of NEW_SHAPES that route there, at phase shapes' B and T and on its seeded
+# inputs, in both types (shapes runs some in float32 only: these are where
+# the float64 ones are run on the card and their bits compared with another
+# tree's), and rbd_five's launch, (72, 36) float32 at DUAL's B=64, T=50.
+CLUSTER_TIMES = tuple(
+    ((n, m), SHAPES["B"], shape_T(m), (torch.float32, torch.float64))
+    for n, m in NEW_SHAPES if n > 64 or m > 32) + (
+    ((72, 36), DUAL["B"], DUAL["T"], (torch.float32,)),)
 
 
 def phase_shapes(device, built):
@@ -3210,16 +3242,21 @@ def main():
             torch.device("cuda", torch.cuda.current_device())),
             "package": ilqr_tpu_torch.__file__}), flush=True)
         return 0
-    if sys.argv[1:2] == ["--xl-times"]:
-        # python3 chip_smoke.py --xl-times [ROOT]: the device times and
-        # stage clocks of riccati_xl.cu's instantiations only, of the port
-        # in ROOT (an older tree unpacked beside this one) or of this one.
+    timed = {"--xl-times": ("xl_times", XL_TIMES, "riccati_xl"),
+             "--cluster-times": ("cluster_times", CLUSTER_TIMES,
+                                 "riccati_cluster")}
+    if sys.argv[1:2] and sys.argv[1] in timed:
+        # python3 chip_smoke.py --xl-times|--cluster-times [ROOT]: the
+        # device times, hashes and stage clocks of one source's
+        # instantiations only, of the port in ROOT (an older tree unpacked
+        # beside this one) or of this one.
+        key, rows, source = timed[sys.argv[1]]
         if len(sys.argv) > 2:
             sys.path.insert(0, sys.argv[2])
         import ilqr_tpu_torch
 
-        print(json.dumps({"xl_times": xl_times(
-            torch.device("cuda", torch.cuda.current_device())),
+        print(json.dumps({key: source_times(
+            torch.device("cuda", torch.cuda.current_device()), rows, source),
             "package": ilqr_tpu_torch.__file__}), flush=True)
         return 0
     t_start = time.perf_counter()

@@ -22,7 +22,7 @@ source's fixed instantiations.  It is built at first use like the others,
 and has its stage-clock build too (``..._clocks``).
 ``csrc/riccati_large.cu``, ``csrc/riccati_xl.cu`` and
 ``csrc/riccati_cluster.cu`` have no fixed instantiation: they are built
-only this way (the last has no stage-clock build).
+only this way.
 
 The library's name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  The build directory

@@ -30,8 +30,8 @@ staged in shared memory or carried in registers a step ahead — up to ``n <=
 (:data:`XL_MAX`, where one lane's step fills a block: the free-flying dual
 arm's ``(36, 18)`` and a humanoid's ``(64, 32)``), and
 ``csrc/riccati_cluster.cu`` past that — one lane a thread-block cluster of
-2, 4 or 8 blocks that split its rows and read each other's through
-distributed shared memory — up to ``n <= 128``, ``m <= 64``
+2, 4 or 8 blocks that split its rows and store what a peer reads into the
+peer's shared memory — up to ``n <= 128``, ``m <= 64``
 (:data:`CLUSTER_MAX`, the largest shape held on the card: the free-flying
 five-arm's ``(72, 36)``, a humanoid under ``al_solve`` at ``(65, 32)``).  A
 larger shape raises before any ``nvcc`` run.
@@ -116,9 +116,8 @@ LARGE_MAX = (32, 16)
 XL_MAX = (64, 32)
 # The largest (n, m) riccati_cluster.cu serves: the largest shape held on the
 # card.  Its lane is a cluster of the fewest of 2, 4, 8 blocks whose share of
-# the step fits a block: at (128, 64) 224,656 bytes a block of 2 in float32,
-# 163,808 a block of 8 in float64 (a cluster of 8, the portable limit, would
-# hold up to (152, 76) in float64).
+# the step fits a block (its Plan): at (128, 64) 187,920 bytes a block of 4 in
+# float32, 222,752 a block of 8 in float64.
 CLUSTER_MAX = (128, 64)
 
 # Launches per kernel name: one is added where a wrapper launches the
@@ -141,10 +140,16 @@ BATCH_LAST, BATCH_FIRST = 0, 1
 # where the ring also costs no block an SM; batch-last TMA boxes of 16 bytes
 # of lanes), else carries each thread's first terms a step ahead in
 # registers (path 4, also batch-last when a row of B lanes is not whole
-# 16-byte granules); riccati_cluster.cu reads every input where it lies in
-# device memory (path 3).
-COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16", 3: "direct",
-              4: "register_prefetch"}
+# 16-byte granules); riccati_cluster.cu has its packer warps stage the next
+# step's first terms and, where they fit beside the plan, its whole A and B
+# in shared memory while the step before factors (path 5), else streams A
+# and B in panels of rows, each loaded into registers while the panel
+# before is summed (path 6); batch-first, where the rows of A and B have no
+# pad (n and m multiples of 4), A and B come by the bulk-copy engine instead,
+# the whole step or a panel ahead, into the same ring (path 7; it refuses
+# inputs that do not start on 16 bytes, as riccati_large.cu does).
+COPY_PATHS = {0: "per_element", 1: "tma", 2: "vector16", 4: "register_prefetch",
+              5: "packer_staged", 6: "panel_stream", 7: "bulk_copy"}
 # What riccati_cluster.cu's launcher returns when no cluster of its plan
 # fits on the card.
 NO_CLUSTER_FITS = 10000
@@ -188,8 +193,7 @@ def route(n: int, m: int) -> Tuple[str, int, int]:
             f"the fused Riccati kernel serves n <= {CLUSTER_MAX[0]} and m <= "
             f"{CLUSTER_MAX[1]}: (n, m) = ({n}, {m}) is past the largest shape "
             f"served, {CLUSTER_MAX} in riccati_cluster.cu, a cluster of 2 to "
-            f"8 blocks a lane (a cluster of 8, the portable limit, holds up "
-            f"to (152, 76) in float64); use backward_backend='scan'")
+            f"8 blocks a lane; use backward_backend='scan'")
     return "riccati_cluster", n, m
 
 
@@ -418,7 +422,15 @@ STAGES = {"riccati": ("copy_issue_wait", "smem_load", "gains", "value"),
           # warps' parts, then the wait for the packer warps (P, the next
           # step's A and B).
           "riccati_xl": ("BtS_SA", "G_H", "cholesky", "solves", "W_Hd",
-                         "P_load_wait", "value")}
+                         "P_load_wait", "value"),
+          # Seen from thread 0 of block 0, a solver: stages 1 and 2 with
+          # their cluster barriers; stage 3 split into the factor, the
+          # solves, the wait for the packer warps' loads, then W, s and dv;
+          # the pairs in the block's own rows up to the cluster wait, the
+          # pairs across blocks up to the step's last cluster barrier.
+          "riccati_cluster": ("BtS_SA", "G_H_P", "cholesky", "solves",
+                              "loads_wait", "W_s_dv", "pairs_own",
+                              "pairs_peer")}
 
 
 def riccati_stage_clocks(arrays, reg, layout=BATCH_LAST):

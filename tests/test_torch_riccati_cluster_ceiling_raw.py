@@ -1,5 +1,5 @@
 """The ceiling of ``csrc/riccati_cluster.cu``, ``(128, 64)`` (a cluster of
-two blocks a lane in float32, eight in float64), with ``symmetrize`` off:
+four blocks a lane in float32, eight in float64), with ``symmetrize`` off:
 the plain version through both entries, B=2, T=2, float64, against the JAX
 ``backward.riccati_step`` run eagerly, each output within 1e-10 of its
 largest magnitude, as ``tests/test_torch_riccati_cluster.py`` holds the

@@ -11,7 +11,8 @@ from ilqr_tpu_torch.ops import _build, cuda_riccati
 
 
 @pytest.mark.parametrize("source", ["riccati", "riccati_wide",
-                                    "riccati_large", "riccati_xl"])
+                                    "riccati_large", "riccati_xl",
+                                    "riccati_cluster"])
 def test_stage_names_match_the_source(source):
     # riccati_stage_clocks names the [B, kStages] counters of a source's
     # stage-clock build by STAGES: one name a counter.
