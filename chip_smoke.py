@@ -21,9 +21,14 @@ Phases, one JSON line each:
 1. ``device``   the card as ``nvidia-smi`` names it, torch and CUDA versions.
 2. ``build``    ``nvcc`` builds ``ilqr_tpu_torch/ops/csrc/*.cu`` from the
                 checkout: the two sources with fixed instantiations, each
-                also with ``-DRICCATI_STAGE_CLOCKS``, and the instantiations
-                of ``shapes`` (one ``nvcc`` a library, all at once,
-                seconds); registers per kernel from ``ptxas``.
+                also with ``-DRICCATI_STAGE_CLOCKS`` (one ``nvcc`` a
+                library, all at once, seconds); registers per kernel from
+                ``ptxas``.  The instantiations of ``shapes`` (and their
+                stage-clock builds) are built meanwhile by a process of its
+                own at the lowest priority, while the phases that launch
+                none of them run; ``build_instances`` waits for it before
+                the first phase that does, and reports their ``nvcc``
+                seconds and registers.
 3. ``kernels``  the one-thread-a-lane Riccati kernel, ``(n, m) = (4, 2)``,
                 against its plain PyTorch version on
                 the card, on local models from ``derivatives_bl`` at a rolled
@@ -55,8 +60,9 @@ Phases, one JSON line each:
                 at the ragged B=257 and B=67 and float32 at B=65 (these take
                 the kernel's per-element copy path, the others TMA; the
                 path of each check is printed); float32 and float64 at the
-                second main path's B=256, T=1000 (and B=64, T=50 for the
-                6-DoF arm), float32 also against a float64 run of the same
+                second main path's B=256, T=1000 (the local models of a
+                T=100 iterate tiled ten times) and B=64, T=50 for the 6-DoF
+                arm, float32 also against a float64 run of the same
                 inputs; then the times (also at the cut solve's T=100), the
                 ``(16, 8)`` float32 cycles a step by stage, and one whole
                 pass at the cut solve's T=100 from a rolled-out iterate:
@@ -148,8 +154,9 @@ Phases, one JSON line each:
                 status, iterations and alpha on every lane, ``us`` equal
                 (or within 1e-6 of max|us|); ladder seconds and rungs a pass.
 19. ``al``      ``al_solve`` of the 2-link in a control box with a velocity
-                cap (B=1024, T=100, float32, the kernel at ``(5, 2)``: the
-                state carries the step index); the largest violation at or
+                cap (B=1024, T=50 cut from 100, float32, the kernel at
+                ``(5, 2)``: the state carries the step index); the largest
+                violation at or
                 below the target; float64 B=4 card against CPU; the
                 ``(5, 2)`` kernel against its plain version, timed.
 20. ``trace_profile``  ``solve_with_trace`` of one float64 scenario, one
@@ -174,7 +181,8 @@ Phases, one JSON line each:
                 float32 (the blocks a lane and the clusters resident
                 printed); both entries, seeded
                 inputs at B=256, T=100 (T=25 where m >= 32), against the plain version at the
-                bars of ``kernels``; time, bound, plain time, padded plan and
+                bars of ``kernels`` (float64 also with ``symmetrize`` off,
+                on the last 10 steps); time, bound, plain time, padded plan and
                 the bytes the source reports, registers and spills, copy
                 path, nvcc seconds, and for ``riccati_large.cu`` and
                 ``riccati_xl.cu`` the blocks resident on an SM and the
@@ -188,7 +196,7 @@ Phases, one JSON line each:
                 move).
 22. ``al_rbd``  ``al_solve`` of the RBD 2-DoF arm with a joint-velocity cap
                 (n=17 with the index, m=8), B=64, T=50, float32, the kernel
-                at ``(17, 8)``, inner solves of 3 passes (cut from 5,
+                at ``(17, 8)``, inner solves of 1 pass (cut from 5,
                 printed), ``max_outer`` cut to a budget (printed),
                 against the same call with ``"scan"``; the ``(17, 8)``
                 kernel against its plain version on the local models of its
@@ -208,6 +216,45 @@ Phases, one JSON line each:
                 ``torch_two_link_swingup.py`` and ``torch_rbd_arm.py``, each
                 ``main`` at a small ``--steps`` on the card: their printed
                 lines, finite results on the card.
+27. ``strict``  ``bench.py --config strict``: phase ``solve``'s width
+                through the fused engine and the kernel with the reference's
+                stopping rule (``tol=1e-6``, no gradient test, at most 100
+                passes) and ``exact_ls_delta``: launches equal passes,
+                lanes by status and mean iterations beside the TPU log's;
+                the scan backend on the same inputs (status equal on every
+                lane, ``us`` as phase ``solve`` holds it); float64 B=8,
+                T=24 card against CPU.
+28. ``rbd_ls``  ``bench.py --config rbd --ls-warm --ls-expected --ls-c
+                0.4``: ``rbd_solve``'s chunked solve (T cut to 100) with
+                the warm-started ladder and the expected-decrease test, the
+                ``(16, 8)`` kernel; one and two passes against the scan
+                backend (``us`` after one, the same alpha on every lane
+                after each: the second ladder starts from the carried
+                alpha), ``max_iter`` cut to a budget (printed; at 2 the
+                two-pass run is the solve), launches equal passes; float64
+                B=8, T=24, 2 passes in chunks of 1, card against CPU.
+29. ``mpc_batch_rbd``  ``bench.py --config mpc_batch --problem rbd``:
+                ``batch_mpc_run`` of 64 RBD arms, H=50, Tassa reg, with
+                ``"scan"`` (as ``bench.py``) and then ``"pallas"``, whose
+                every iteration launches the batch-first ``(16, 8)``
+                entry; one pass of the first replan through both backends
+                held tightly, its time cutting the replans' ``max_iter``
+                and ``n_steps`` to a budget (printed); launches equal
+                passes, the runs' statuses, median lane and costs against
+                the scan run; ms a replan and scenario-replans/s; float64
+                B=2, H=10, 2 steps, card against CPU.
+30. ``ddp``     ``scripts/bench_ddp.py``'s rows (``ilqr``, ``ddp``,
+                ``ddp+areg``, ``ilqr+areg``): the 2-link, B=64, T=50 (cut
+                from 100, printed), float32, ``engine="vmap"`` with the scan backend (DDP takes
+                ``dynamics_hessians`` into the recursion): converged, mean
+                and max iterations, mean cost and seconds beside the TPU
+                log's; float64 B=8, T=24 with ``ddp`` and ``reg_in_value``,
+                card against CPU.
+
+The phases run in the order above, except that ``rbd_dual``, ``rbd_five``,
+``shapes``, ``al_rbd`` and ``al_6dof``, which launch instantiations of
+``shapes``, run last (after ``build_instances``), and ``strict``,
+``rbd_ls``, ``mpc_batch_rbd`` and ``ddp`` run before ``sharded``.
 
 ``--large-times [ROOT]`` prints only the device times of the
 ``riccati_large.cu`` instantiations of LARGE_TIMES (both entries, both
@@ -736,13 +783,14 @@ SOURCE_FILES = {"riccati": KERNEL_SOURCE, "riccati_wide": WIDE_SOURCE,
 # of phase shapes the cycles a step by stage.
 ONE_LANE_A_BLOCK = ("riccati_large", "riccati_xl")
 # snapshot_every: bench.py --config rbd's default (bench.py:388).
-# max_iter_cut: the passes of the cut solve, 2, cut from 15 (to 10 with
+# max_iter_cut: the passes of the cut solve, 1, cut from 15 (to 10 with
 # the kernel at any shape and the multi-device entry points, to 5 with
 # al_6dof and the examples, to 3 when a host whose cores are shared ran the
 # script in 969 s, to 2 when rbd_dual and the riccati_xl.cu rows of shapes
-# took it to 1015 s on an H100) so that the script fits its time (the width
-# is unchanged).
-RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=2, max_iter=100,
+# took it to 1015 s on an H100, to 1 with rbd_ls, which runs this solve's
+# path for two passes) so that the script fits its time (the width is
+# unchanged).
+RBD = dict(B=256, T=1000, T_cut=100, max_iter_cut=1, max_iter=100,
            snapshot_every=4)
 SIX = dict(B=64, T=50, max_iter=15, min_iter=1)
 # Seconds the RBD solve and its scan twin may take together: decides T, and
@@ -848,12 +896,14 @@ def rbd_inputs(case, B, T, dtype, seed, device):
         (B, T, problem.control_dim), dtype=dtype, device=device)
 
 
-def rbd_local_models(case, B, T, dtype, seed, device, timings=None):
+def rbd_local_models(case, B, T, dtype, seed, device, timings=None,
+                     chunk=None):
     """Local models of the RBD problem at an iterate rolled out under small
     random controls: the conditioning of ``H + reg I`` a solve sees.  With
     ``timings`` (a dict) the seconds of the rollout — one rung of the
     line-search ladder — and of ``derivatives_bl`` are written into it.
-    Returns ``(models, xs, us)``."""
+    ``chunk``: ``derivatives_bl``'s, by default ``bench.py``'s (100 at
+    T >= 500, else 0).  Returns ``(models, xs, us)``."""
 
     from ilqr_tpu_torch.batched import derivatives_bl, rollout_bl
 
@@ -870,8 +920,10 @@ def rbd_local_models(case, B, T, dtype, seed, device, timings=None):
     us = (0.1 * torch.randn((T, problem.control_dim, B), generator=gen,
                             dtype=torch.float64)).to(dtype).to(device)
     xs, rollout_s = timed(lambda: rollout_bl(problem, x0s.T.contiguous(), us))
+    if chunk is None:
+        chunk = 100 if T >= 500 else 0
     models, derivatives_s = timed(lambda: derivatives_bl(
-        problem, xs, us, chunk=100 if T >= 500 else 0))
+        problem, xs, us, chunk=chunk))
     if timings is not None:
         timings.update(rollout_rung_s=rollout_s, derivatives_s=derivatives_s)
     return models, xs, us
@@ -947,8 +999,22 @@ def phase_rbd_kernels(cases, device):
         # step), so it runs once per type and that call is the one timed.
         B, T = full["B"], full["T"]
         one_pass[tag] = dict(B=B, T=T)
-        m32, xs, us = rbd_local_models(case, B, T, torch.float32, 60, device,
-                                       timings=one_pass[tag])
+        if T > RBD["T_cut"]:
+            # At T=1000 the local models of a T_cut-step iterate, tiled:
+            # the same recursion over the arm's local models at the main
+            # path's depth, without a T=1000 rollout (26 s on an H100).
+            # Their derivative sweep runs in chunks, as bench.py's at T=1000
+            # (--deriv-chunk 100), here of half the horizon.
+            m32, xs, us = rbd_local_models(case, B, RBD["T_cut"],
+                                           torch.float32, 60, device,
+                                           chunk=RBD["T_cut"] // 2)
+            reps = T // RBD["T_cut"]
+            m32 = tuple(x.repeat((reps,) + (1,) * (x.ndim - 1))
+                        for x in m32[:7]) + m32[7:]
+            one_pass[tag]["tiled_from_T"] = RBD["T_cut"]
+        else:
+            m32, xs, us = rbd_local_models(case, B, T, torch.float32, 60,
+                                           device, timings=one_pass[tag])
         m64 = tuple(x.double() for x in m32)
         plain, plain_ms = {}, {}
         for dtype, models in ((torch.float32, m32), (torch.float64, m64)):
@@ -1138,8 +1204,6 @@ def phase_rbd_solve(case, device, one_pass_cut):
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0, chunks
 
-    first_pass = compare_first_pass(run("pallas", 1)[0], run("scan", 1)[0])
-
     # The main path: counts set to 0 just before, read just after.  It stops
     # at a chunk boundary once half the budget is spent.
     cuda_riccati.reset_launch_counts()
@@ -1167,11 +1231,15 @@ def phase_rbd_solve(case, device, one_pass_cut):
          per_pass_s={k: v / passes for k, v in spent.items()},
          per_pass_other_s=(solve_s - sum(spent.values())) / passes)
 
-    # The same passes through the scan backend.
+    # The same passes through the scan backend, and one pass from the same
+    # state through each (where the solve is one pass, the two solves).
     cuda_riccati.reset_launch_counts()
     ref, scan_s, _ = run("scan", passes)
     assert cuda_riccati.launches() == 0
     check_rbd_result(ref, cost0, B, T, n, m, torch.float32)
+    first_pass = compare_first_pass(*(
+        (res, ref) if passes == 1 else
+        (run(b, 1)[0] for b in ("pallas", "scan"))))
     emit(phase="rbd_solve_scan", solve_s=scan_s, passes=passes,
          after_first_pass=first_pass, **compare_backends(res, ref, None))
     return {name: counts[name]}
@@ -1186,7 +1254,9 @@ def phase_rbd_parity(case, device):
     problem = case[0]
     B, T = 8, 24
     x0s, us0 = rbd_inputs(case, B, T, torch.float64, 70, "cpu")
-    cfg = rbd_config(4, T)
+    # 2 passes in chunks of one (cut from 4 in chunks of 2 with rbd_ls,
+    # whose float64 check runs this path with its flags).
+    cfg = rbd_config(2, T)
     name = cuda_riccati.kernel_name(problem.state_dim, problem.control_dim,
                                     torch.float64)
 
@@ -1194,7 +1264,7 @@ def phase_rbd_parity(case, device):
         xs0 = batched.rollout_bl(problem, x0s.T.contiguous().to(dev),
                                  us0.movedim(0, -1).contiguous().to(dev))
         solve_fn = batched.make_chunked_batch_solver(
-            problem, cfg, iter_chunk=2, compact_sizes=(4,), device=dev,
+            problem, cfg, iter_chunk=1, compact_sizes=(4,), device=dev,
             on_chunk=lambda p, r: chunks.append((p, r)))
         return solve_fn(xs0.movedim(-1, 0).contiguous(), us0)
 
@@ -1253,10 +1323,6 @@ def phase_rbd_6dof(case, device):
         print(f"chip_smoke: rbd_6dof: max_iter cut from {SIX['max_iter']} to "
               f"{max_iter} by the {SIX_BUDGET_S} s budget", file=sys.stderr,
               flush=True)
-    first_pass = compare_first_pass(
-        run(cfg.replace(max_iter=1), x0s, us0)[0],
-        run(cfg.replace(max_iter=1, backward_backend="scan"), x0s, us0)[0])
-
     cuda_riccati.reset_launch_counts()
     with phase_clock() as spent:
         res, solve_s = run(cfg, x0s, us0)
@@ -1279,6 +1345,12 @@ def phase_rbd_6dof(case, device):
     ref, scan_s = run(cfg.replace(backward_backend="scan"), x0s, us0)
     assert cuda_riccati.launches() == 0
     scan = compare_backends(res, ref, None)
+    # One pass from the same state through both backends: where the cut
+    # leaves one pass, the two solves above are those passes.
+    first_pass = compare_first_pass(*(
+        (res, ref) if max_iter == 1 else
+        (run(cfg.replace(max_iter=1, backward_backend=b), x0s, us0)[0]
+         for b in ("pallas", "scan"))))
 
     emit(phase="rbd_6dof", B=B, T=T, n=n, m=m, dtype="float32",
          max_iter=max_iter, max_iter_config=SIX["max_iter"],
@@ -1313,10 +1385,12 @@ def phase_rbd_five(case, device):
 
 def free_flying_arm(phase, case, source, device):
     """A free-flying arm at DUAL's B and T (64 and 50), float32, through
-    ``make_batch_solver(engine="fused")`` with ``backward_backend="pallas"``:
-    every pass launches the batch-last entry of the arm's instantiation.
-    First the kernel on the local models of an iterate rolled out under
-    small random controls, against the plain version (F32_REL_BOUND_RBD of
+    ``batch_solve(engine="fused")`` (``make_batch_solver``'s function) with
+    ``backward_backend="pallas"``, from the open-loop rollout of zero
+    controls, rolled out once and given as ``warm_xs``: every pass launches
+    the batch-last entry of the arm's instantiation.  First the kernel on
+    the local models of that rollout (what the solve's first launch is
+    handed), against the plain version (F32_REL_BOUND_RBD of
     each output's largest magnitude), timed beside its bound, with its copy
     path, shared bytes, and blocks an SM (``riccati_xl.cu``) or blocks a
     lane and clusters resident (``riccati_cluster.cu``).  Then the solve,
@@ -1334,7 +1408,7 @@ def free_flying_arm(phase, case, source, device):
     from ilqr_tpu_torch.ops import _build, cuda_riccati
     from ilqr_tpu_torch.ops.cuda_riccati import (riccati_scan_cuda_bl,
                                                  riccati_scan_plain_bl)
-    from ilqr_tpu_torch.parallel.batching import make_batch_solver
+    from ilqr_tpu_torch.parallel.batching import batch_solve
 
     problem = case[0]
     n, m = problem.state_dim, problem.control_dim
@@ -1343,7 +1417,21 @@ def free_flying_arm(phase, case, source, device):
     name = cuda_riccati.kernel_name(n, m, torch.float32)
     assert cuda_riccati.route(n, m) == (source, n, m)
 
-    models = rbd_local_models(case, B, T, torch.float32, 90, device)[0]
+    # The open-loop rollout the solves start from (given to both as
+    # warm_xs, so that neither rolls it out again: at the five-arm's width a
+    # rollout takes 15 s on an H100) and its local models, what the solve's
+    # first launch is handed.
+    x0s, us0 = rbd_inputs(case, B, T, torch.float32, 81, device)
+    us_bl = us0.movedim(0, -1).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs0 = batched.rollout_bl(problem, x0s.T.contiguous(), us_bl)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    cost0 = batched.total_cost_bl(problem, xs0, us_bl)
+    warm_xs = xs0.movedim(-1, 0).contiguous()
+
+    models = batched.derivatives_bl(problem, xs0, us_bl)
     reg = torch.full((B,), 1.0, dtype=torch.float32, device=device)
     kern = riccati_scan_cuda_bl(*models, reg)
     path = last_copy_path()
@@ -1370,23 +1458,10 @@ def free_flying_arm(phase, case, source, device):
                bound_by=bound_by, library_ms=None)
     del models, kern, plain
 
-    x0s, us0 = rbd_inputs(case, B, T, torch.float32, 81, device)
-    us_bl = us0.movedim(0, -1).contiguous()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    xs0 = batched.rollout_bl(problem, x0s.T.contiguous(), us_bl)
-    torch.cuda.synchronize()
-    rollout_s = time.perf_counter() - t0
-    cost0 = batched.total_cost_bl(problem, xs0, us_bl)
-
     def run(cfg):
-        solve_fn = make_batch_solver(problem, cfg, engine="fused",
-                                     device=device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = solve_fn(x0s, us0)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
+        return timed_call(lambda: batch_solve(
+            problem, x0s, us0, config=cfg, warm_xs=warm_xs, engine="fused",
+            device=device))
 
     # A later pass climbs more rungs than the first: count it 2.5 times,
     # and the scan twin as one more solve.
@@ -1702,7 +1777,10 @@ def phase_single(problem, device):
     us0 = torch.zeros((T, M), dtype=torch.float32, device=device)
     xs0 = rollout(lambda x, u: problem_dynamics(problem, x, u), x0, us0)
     times = []
-    for _ in range(4):
+    # The first call and two warm ones (three warm ones until the phases of
+    # bench.py's strict, rbd --ls-*, mpc_batch --problem rbd and the DDP A/B
+    # came, so that the script fits its time).
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = solve(problem, xs0, us0, config=cfg, device=device)
@@ -1725,7 +1803,7 @@ def phase_mpc(problem, device):
     go through the batch-first entry.  ``n_steps`` is cut to MPC_BUDGET_S
     from the time of a two-step run."""
 
-    from ilqr_tpu_torch.config import ILQRConfig, Status
+    from ilqr_tpu_torch.config import ILQRConfig
     from ilqr_tpu_torch.ops import cuda_riccati
     from ilqr_tpu_torch.parallel.mpc import batch_mpc_run, mpc_run
 
@@ -1744,8 +1822,7 @@ def phase_mpc(problem, device):
         assert r.xs.shape == lead + (n_steps + 1, N)
         for f in (r.xs, r.us, r.costs):
             assert bool(torch.isfinite(f).all())
-        return {Status(int(c)).name: int((r.statuses == c).sum())
-                for c in r.statuses.unique()}
+        return lanes_by_status(r.statuses)
 
     x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], dtype=torch.float32,
                       device=device)
@@ -1803,9 +1880,11 @@ MPC_CHUNKED_BUDGET_S = 10.0
 # bench.py --config long_horizon: B=256, T=1000, max_iter=15, three backends.
 LONG = dict(B=256, T=1000, max_iter=15)
 # Seconds the three long-horizon solves may take together; caps max_iter.
-# Cut from 120 s (4 passes) to 60 s with RBD["max_iter_cut"], for the same
-# reason.
-LONG_BUDGET_S = 60.0
+# Cut from 120 s (4 passes) to 60 s with RBD["max_iter_cut"], and to 30 s
+# (1 pass on an H100: the one-pass solves that time it are then the
+# phase's) with the phases of bench.py's strict, rbd --ls-*, mpc_batch
+# --problem rbd and the DDP A/B, for the same reason.
+LONG_BUDGET_S = 30.0
 # Float64 associative backward pass, card against the plain torch pit on
 # the CPU: the rtol of tests/test_torch_pit.py.
 LONG_F64 = dict(B=8, T=200, rtol=1e-9)
@@ -1822,8 +1901,11 @@ PARALLEL_ALPHA_REL_BOUND = 1e-6
 # A ladder of 4 rungs: a ladder that runs out raises reg for the next pass,
 # and with the default 32 rungs one such lane makes the whole batch roll out
 # 32 times (ROADMAP.md C12), which here happens nearly every pass.
-AL = dict(B=1024, T=100, u_max=1.5, v_max=2.5, max_outer=10, max_iter=10,
-          max_backtracks=4)
+# T cut from 100 to 50 with the phases of bench.py's strict, rbd --ls-*,
+# mpc_batch --problem rbd and the DDP A/B (93 s at T=100 on an H100, a
+# host-bound pass a time step), so that the script fits its time.
+AL = dict(B=1024, T=50, T_uncut=100, u_max=1.5, v_max=2.5, max_outer=10,
+          max_iter=10, max_backtracks=4)
 AL_F64 = dict(B=4, T=24, rtol=1e-8)
 TRACE = dict(T=50, max_iter=15)
 
@@ -2031,34 +2113,45 @@ def phase_long_horizon(problem, device):
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
-    one = {b: run(base.replace(max_iter=1, backward_backend=b))[1]
-           for b in backends}
-    # A later pass climbs more rungs than the first: count it twice.
-    cap = max(2, min(LONG["max_iter"],
-                     int(LONG_BUDGET_S / (2 * sum(one.values())))))
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+
+    def solve(backend, max_iter):
+        """``(result, seconds, batch-first launches)``; counts set to 0
+        just before and read just after."""
+
+        cuda_riccati.reset_launch_counts()
+        res, solve_s = run(base.replace(max_iter=max_iter,
+                                        backward_backend=backend))
+        if backend != "pallas":
+            assert cuda_riccati.launches() == 0
+            return res, solve_s, 0
+        return res, solve_s, count_batch_first(name)
+
+    one = {b: solve(b, 1) for b in backends}
+    # A later pass climbs more rungs than the first: count it twice.  Where
+    # the budget leaves one pass, the one-pass solves are the phase's.
+    cap = max(1, min(LONG["max_iter"],
+                     int(LONG_BUDGET_S / (2 * sum(o[1] for o in
+                                                  one.values())))))
     if cap < LONG["max_iter"]:
         print(f"chip_smoke: long_horizon: max_iter cut from "
               f"{LONG['max_iter']} to {cap} by the {LONG_BUDGET_S} s budget",
               file=sys.stderr, flush=True)
-    name = cuda_riccati.kernel_name(N, M, torch.float32)
     rows, results, launches = {}, {}, 0
     for backend in backends:
-        cuda_riccati.reset_launch_counts()
-        res, solve_s = run(base.replace(max_iter=cap,
-                                        backward_backend=backend))
+        res, solve_s, launched = (one[backend] if cap == 1
+                                  else solve(backend, cap))
         passes = int(res.iterations.max())
         if backend == "pallas":
-            launches = count_batch_first(name)
+            launches = launched
             assert launches == passes >= 1, (launches, passes)
-        else:
-            assert cuda_riccati.launches() == 0
         assert res.us.shape == (B, T, M) and res.us.dtype == torch.float32
         for f in (res.xs, res.us, res.cost):
             assert bool(torch.isfinite(f).all()), backend
         results[backend] = res
         rows[backend] = dict(
             solve_s=solve_s, solves_per_s=B / solve_s, passes=passes,
-            one_pass_s=one[backend],
+            one_pass_s=one[backend][1],
             lanes_converged=int((res.status == int(Status.CONVERGED)).sum()),
             mean_cost=float(res.cost.mean()))
     # The kernel against the scan it replaces, over the cut solve.
@@ -2190,8 +2283,9 @@ def al_inputs(B, T, dtype, seed, device):
 
 def phase_al(problem, device):
     """``al_solve`` of the 2-link with a control box and a velocity cap,
-    B=1024, T=100, float32, ``backward_backend="pallas"``: the index
-    coordinate makes the state n=5, so every inner backward pass launches
+    B=1024, T=50 (cut from 100, printed), float32,
+    ``backward_backend="pallas"``: the index coordinate makes the state
+    n=5, so every inner backward pass launches
     the batch-first entry of ``riccati.cu`` at ``(5, 2)``.  The largest
     violation must end at or below the ALConfig target; then float64 at B=4,
     card against CPU; then the ``(5, 2)`` kernel at the phase's shapes
@@ -2200,7 +2294,7 @@ def phase_al(problem, device):
     import functools
 
     from ilqr_tpu_torch import al
-    from ilqr_tpu_torch.config import ILQRConfig, Status
+    from ilqr_tpu_torch.config import ILQRConfig
     from ilqr_tpu_torch.derivatives import (problem_linearize,
                                             problem_quadratize_final,
                                             problem_quadratize_running)
@@ -2214,6 +2308,8 @@ def phase_al(problem, device):
                      backward_backend="pallas")
     alc = al.ALConfig(max_outer=AL["max_outer"])
     B, T = AL["B"], AL["T"]
+    print(f"chip_smoke: al: T cut from {AL['T_uncut']} to {T}, so that the "
+          f"script fits its time", file=sys.stderr, flush=True)
     x0s, us0 = al_inputs(B, T, torch.float32, 11, device)
 
     def run(x0, u0, dev, cfg_run):
@@ -2240,8 +2336,7 @@ def phase_al(problem, device):
     # where float32 tanh rounds to 1.
     u = to_u(res.us)
     assert float(u.abs().max()) <= AL["u_max"]
-    by_status = {Status(int(c)).name: int((res.status == c).sum())
-                 for c in res.status.unique()}
+    by_status = lanes_by_status(res.status)
 
     # Float64 at a small size: card (kernel at (5, 2)) against CPU.
     Bf, Tf = AL_F64["B"], AL_F64["T"]
@@ -2490,8 +2585,11 @@ CHECK_ONLY_SHAPES = ((7, 3), (6, 11), (3, 1), (5, 5), (32, 16), (29, 5),
                      (10, 13), (64, 32), (37, 18), (33, 16), (20, 32),
                      (128, 64), (65, 32), (73, 36), (20, 40), (96, 48))
 # The rows at m >= 32 run at T_m32: at (64, 32) the plain version took about
-# 22 s a call at T=100 on an H100 (the cut is printed).
-SHAPES = dict(B=256, T=100, T_m32=25)
+# 22 s a call at T=100 on an H100 (the cut is printed).  The float64 rows'
+# second check, symmetrize off, runs the last T_sym_off steps of the
+# horizon: at full depth its plain version took 22 s of the phase on an
+# H100 (the cut is printed).
+SHAPES = dict(B=256, T=100, T_m32=25, T_sym_off=10)
 
 
 def shape_T(m):
@@ -2507,25 +2605,30 @@ HASH_SHAPES = ((4, 2), (5, 2), (16, 8), (24, 12))
 LARGE_HASH_SHAPES = ((25, 12), (32, 16))
 HASH = dict(B=64, T=50, seed=123)
 # al_solve of an arm with a joint-velocity cap, float32, through the
-# per-scenario engine: inner solves of at most 3 passes (cut from
-# AL_ARM_INNER_UNCUT with rbd_dual, so that the script fits its time; the
-# cut is printed; at 2 the budget below affords more outer iterations and
-# the phases take longer) with a 4-rung ladder
-# and Tassa regularization (rbd_config), max_outer cut so that the kernel run
-# and its scan twin fit AL_ARM_BUDGET_S.  Phase al_rbd runs it on the RBD
-# 2-DoF arm (the kernel at (17, 8)), phase al_6dof on the 6-DoF arm
-# (scripts/bench_6dof.py's B and T; the kernel at (25, 12)), where one outer
-# iteration takes about half the budget on an H100 (the phase prints it), so
-# max_outer is cut to 1.
-AL_ARM = dict(B=64, T=50, v_max=2.0, max_iter=3, max_backtracks=4,
+# per-scenario engine: inner solves of 1 pass (cut from AL_ARM_INNER_UNCUT,
+# to 3 with rbd_dual and to 1 with the phases of bench.py's strict, rbd
+# --ls-*, mpc_batch --problem rbd and the DDP A/B, so that the script fits
+# its time; the cut is printed) with a 4-rung
+# ladder and Tassa regularization (rbd_config), max_outer cut so that the
+# kernel run and its scan twin fit AL_ARM_BUDGET_S (cut from 60 s to 20 s
+# with the inner passes, so that it still affords one outer iteration).
+# Phase al_rbd runs it on the RBD 2-DoF arm (the kernel at (17, 8)), phase
+# al_6dof on the 6-DoF arm (scripts/bench_6dof.py's B and T; the kernel at
+# (25, 12)); on an H100 one outer iteration takes a third to half of the
+# budget (the phases print it), so max_outer is cut to 1.
+AL_ARM = dict(B=64, T=50, v_max=2.0, max_iter=1, max_backtracks=4,
               max_outer=10)
 AL_ARM_INNER_UNCUT = 5
-AL_ARM_BUDGET_S = 60.0
+AL_ARM_BUDGET_S = 20.0
 # The examples on the card, each at a small --steps (the defaults, 900 and
-# 1000 steps with 40 and 50 iterations, are minutes of host-bound work).
+# 1000 steps with 40 and 50 iterations, are minutes of host-bound work);
+# the RBD arm's --steps cut from 50 to 25 and --max-iter from 5 to 3 (18
+# s on an H100) with the phases of bench.py's strict, rbd --ls-*,
+# mpc_batch --problem rbd and the DDP A/B, so that the script fits its
+# time.
 EXAMPLES = (("torch_two_link_open_loop", ["--steps", "100"]),
             ("torch_two_link_swingup", ["--steps", "100", "--max-iter", "10"]),
-            ("torch_rbd_arm", ["--steps", "50", "--max-iter", "5"]))
+            ("torch_rbd_arm", ["--steps", "25", "--max-iter", "3"]))
 # The 2-link at the main path's width through sharded_batch_solve on a
 # world-size-1 NCCL group.
 SHARDED = dict(B=4096, T=100)
@@ -2536,20 +2639,21 @@ PIPELINE_NOTE = ("not run on the card: one H100, and the two-stage pipeline "
 
 def synthetic_models(n, m, B, T, seed, device, dtype=torch.float64):
     """Batch-last local models ``(As, Bs, qx, ru, Qxx, Pux, Ruu, qxN, QN)``
-    of a stable, well-conditioned problem, drawn in float64 on the CPU from
-    ``seed`` (the same numbers on any tree), then cast and moved.
+    of a stable, well-conditioned problem, drawn in float64 on ``device``
+    from ``seed`` (the same numbers on any tree), then cast.  Drawn on the
+    card, not on the host: at ``(128, 64)``, B=256, T=25 the host took
+    about 14 s to draw them.
 
     The stage cost ``[[Qxx, Pux'], [Pux, Ruu]]`` must stay positive
     semidefinite, or the recursion's ``H`` loses its Cholesky factor in the
     plain version as in the kernel: ``Qxx >= 0.1 I``, ``Ruu >= I``, and the
     cross term ``c * randn`` has a norm of about ``c (sqrt(n) + sqrt(m))``,
     which must stay under ``sqrt(0.1)``.  ``c = 0.05`` does up to ``(32,
-    16)`` and is kept there (the inputs of every earlier row); past it ``c =
-    0.2 / (sqrt(n) + sqrt(m))`` (at ``(64, 32)``, c = 0.05 made 29 of 256
-    lanes NaN by T=100 in both versions)."""
+    16)``; past it ``c = 0.2 / (sqrt(n) + sqrt(m))`` (at ``(64, 32)``, c =
+    0.05 made 29 of 256 lanes NaN by T=100 in both versions)."""
 
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    f64 = dict(dtype=torch.float64)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=device)
     cross = (0.05 if n <= 32 and m <= 16
              else 0.2 / (n ** 0.5 + m ** 0.5))
 
@@ -2561,18 +2665,13 @@ def synthetic_models(n, m, B, T, seed, device, dtype=torch.float64):
         return (torch.einsum("tikb,tjkb->tijb", X, X) * scale
                 + torch.eye(k, **f64)[None, :, :, None])
 
-    # QN is the first of T draws of spd(n, 1.0), the last draw of all: the
-    # first n * n * B normals of the stream, a whole number of the
-    # generator's blocks of 16, are the same whether T or one matrix a
-    # lane is drawn, so one is drawn where that holds.
-    qn_steps = 1 if (n * n * B) % 16 == 0 else T
     models = (0.9 * torch.eye(n, **f64)[None, :, :, None]
               + 0.1 * randn(T, n, n, B) / n ** 0.5,
               0.3 * randn(T, n, m, B), 0.1 * randn(T, n, B),
               0.1 * randn(T, m, B), 0.1 * spd(n, 0.5),
               cross * randn(T, m, n, B), spd(m, 0.2), randn(n, B),
-              spd(n, 1.0, qn_steps)[0])
-    return tuple(x.to(dtype).to(device).contiguous() for x in models)
+              spd(n, 1.0, 1)[0])
+    return tuple(x.to(dtype).contiguous() for x in models)
 
 
 def shape_types(n, m):
@@ -2784,7 +2883,8 @@ CLUSTER_TIMES = tuple(
 def phase_shapes(device, built):
     """The kernel at the shapes of NEW_SHAPES, built at first use: both
     entries, both types, on seeded inputs at B=256, T=100, against the plain
-    version at the existing bars (``symmetrize`` off too, in float64), the
+    version at the existing bars (``symmetrize`` off too, in float64, on
+    the last ``SHAPES["T_sym_off"]`` steps), the
     two entries equal (``torch.equal``); the time beside the bound (logical
     bytes read and written once over 3.35 TB/s) and the plain version's, the
     padded plan and its bytes, registers and spills, the blocks resident
@@ -2804,8 +2904,9 @@ def phase_shapes(device, built):
     B = SHAPES["B"]
     rows_bl, rows_bf = {}, {}
     print(f"chip_smoke: shapes: T cut from {SHAPES['T']} to "
-          f"{SHAPES['T_m32']} at m >= 32 (the plain version's time)",
-          file=sys.stderr, flush=True)
+          f"{SHAPES['T_m32']} at m >= 32, and to {SHAPES['T_sym_off']} for "
+          f"the float64 check with symmetrize off (the plain version's "
+          f"time)", file=sys.stderr, flush=True)
     for n, m in NEW_SHAPES:
         T = shape_T(m)
         # Drawn once a shape in float64 (the float32 row is its cast: the
@@ -2832,8 +2933,10 @@ def phase_shapes(device, built):
             for g, e in zip(got_bf, from_batch_last(got)):
                 assert torch.equal(g, e), (name, "batch-first != batch-last")
             if dtype == torch.float64:
-                hold(riccati_scan_cuda_bl(*bl, reg, symmetrize=False),
-                     riccati_scan_plain_bl(*bl, reg, symmetrize=False),
+                tail = (tuple(x[-SHAPES["T_sym_off"]:] for x in bl[:7])
+                        + bl[7:])
+                hold(riccati_scan_cuda_bl(*tail, reg, symmetrize=False),
+                     riccati_scan_plain_bl(*tail, reg, symmetrize=False),
                      F32_REL_BOUND)
             bound_ms, bound_by = riccati_bound_ms(T, B, dtype, n, m)
             library = cuda_riccati.library_and_symbol(n, m, dtype)[0]
@@ -2923,7 +3026,6 @@ def al_arm(phase, case, spec, budget_s, device):
     import functools
 
     from ilqr_tpu_torch import al
-    from ilqr_tpu_torch.config import Status
     from ilqr_tpu_torch.derivatives import (problem_linearize,
                                             problem_quadratize_final,
                                             problem_quadratize_running)
@@ -2989,8 +3091,7 @@ def al_arm(phase, case, spec, budget_s, device):
     median = float(lane_rel.median())
     assert median <= F32_SOLVE_MEDIAN_BOUND_RBD, median
     assert float(cost_rel.max()) <= F32_SOLVE_COST_BOUND_RBD, cost_rel.max()
-    by_status = {Status(int(c)).name: int((res.status == c).sum())
-                 for c in res.status.unique()}
+    by_status = lanes_by_status(res.status)
 
     # The kernel on the local models of the first augmented problem
     # (multipliers 0, penalty mu0) at the rollout of zero controls: what its
@@ -3196,6 +3297,545 @@ def phase_examples(device):
     emit(phase="examples", runs=runs)
 
 
+# ---------------------------------------------------------------------------
+# What bench.py and scripts/bench_ddp.py run that no phase above does:
+# --config strict (exact_ls_delta), --config rbd with the warm-started
+# expected-decrease ladder, --config mpc_batch --problem rbd, and full DDP
+# against iLQR (ddp, reg_in_value).
+# ---------------------------------------------------------------------------
+
+# bench.py --config strict (bench.py:347-364): the reference's stopping rule
+# sum((du)^2) <= 1e-6 with no gradient test, exact_ls_delta, at most 100
+# passes, at the main path's width.  TPU: what its log printed.
+STRICT = dict(B=4096, T=100, max_iter=100, tol=1e-6)
+STRICT_TPU = dict(lanes_converged=4096, mean_iterations=7.7,
+                  log="bench_logs/r5/headline_strict.log")
+# bench.py --config rbd --ls-warm --ls-expected --ls-c 0.4 (the TPU's best
+# RBD row, BENCH.md:565-566): phase rbd_solve's chunked solve (T cut to
+# RBD["T_cut"]) with the warm-started expected-decrease ladder; max_iter
+# cut so that the solve fits RBD_LS_BUDGET_S, from the time of two passes
+# (on an H100 two passes took 13 s, so the cut leaves 2).
+RBD_LS = dict(B=256, ls_c=0.4, iter_chunk=10)
+RBD_LS_BUDGET_S = 15.0
+# bench.py --config mpc_batch --problem rbd (bench.py:230-270, :435-441): a
+# fleet of 64 floating-base arms replanning in lock-step, H=50, 50 steps of
+# at most 10 passes, Tassa reg, the perturbation of the attitude (0.02) and
+# the pose (0.05) about bench.py's nominal.  The replans' max_iter and then
+# n_steps are cut from the time of one pass so that the scan and the kernel
+# runs fit MPC_RBD_BUDGET_S together.
+MPC_RBD = dict(B=64, H=50, n_steps=50, max_iter=10, attitude=0.02,
+               pose=0.05)
+MPC_RBD_BUDGET_S = 25.0
+# scripts/bench_ddp.py: the 2-link, B=64, T=100, tol 1e-6, at most 200
+# passes, exact_ls_delta, its rows in its order; x0 0.2 and us0 0.01 times
+# numpy's default_rng(0) normals.  TPU: converged, mean and max iterations
+# and mean cost as bench_logs/r5/ddp_two_link.log printed them, at T=100.
+# T is cut to T_cut: at T=100 the four rows took 191 s on an H100's host
+# (390 rollouts of the per-scenario ladder, each about 20,000 kernels
+# issued from Python), and matched the TPU's rows.
+DDP = dict(B=64, T=100, T_cut=50, max_iter=200, tol=1e-6)
+DDP_ROWS = (("ilqr", {}), ("ddp", dict(ddp=True)),
+            ("ddp+areg", dict(ddp=True, adaptive_reg=True,
+                              reg_backtrack_trigger=4)),
+            ("ilqr+areg", dict(adaptive_reg=True, reg_backtrack_trigger=4)))
+DDP_TPU = {"log": "bench_logs/r5/ddp_two_link.log",
+           "ilqr": [64, 5.8, 8, 267.699], "ddp": [48, 3.8, 6, 396.468],
+           "ddp+areg": [64, 6.2, 12, 267.699],
+           "ilqr+areg": [64, 5.7, 8, 267.699],
+           "columns": ["converged", "mean_iterations", "max_iterations",
+                       "mean_cost"]}
+
+
+def timed_call(fn, *args):
+    """``(fn(*args), seconds)`` on the host's clock, synchronized."""
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lanes_by_status(status):
+    from ilqr_tpu_torch.config import Status
+
+    return {Status(int(c)).name: int((status == c).sum())
+            for c in status.unique()}
+
+
+def card_against_cpu(run, device, launches_of, *fields):
+    """``run(dev)`` on the CPU (the plain version) and on ``device``, the
+    card (the kernel where the config says so), float64: ``status`` and
+    ``iterations`` (or ``statuses``) equal, each of ``fields`` to rtol 1e-8
+    (atol 1e-10), as phase ``parity`` holds them.  ``launches_of()`` reads
+    the card run's launches (counts set to 0 just before it).  Returns a
+    summary."""
+
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    cpu = run("cpu")
+    cuda_riccati.reset_launch_counts()
+    gpu = run(device)
+    launches = launches_of()
+    out = {"launches": launches}
+    for f in ("status", "statuses", "iterations"):
+        if hasattr(cpu, f):
+            a, b = getattr(cpu, f), getattr(gpu, f).cpu()
+            assert torch.equal(a, b), (f, a, b)
+            out[f] = a.tolist()
+    for f in fields:
+        a, b = getattr(cpu, f), getattr(gpu, f).cpu()
+        assert a.dtype == b.dtype == torch.float64, (f, a.dtype, b.dtype)
+        torch.testing.assert_close(b, a, rtol=1e-8, atol=1e-10,
+                                   msg=lambda s: f"{f}: {s}")
+        out[f"{f}_max_abs_diff"] = float((b - a).abs().max())
+    return out
+
+
+def phase_strict(problem, device):
+    """``bench.py --config strict``: ``make_batch_solver(engine="fused")``
+    with the kernel, float32, STRICT's config (``exact_ls_delta``: the
+    line search's decrease as a sum of per-step differences, a candidate
+    equal to the iterate accepted).  Launches equal passes; lanes by status
+    and mean iterations beside the TPU's; the same inputs through
+    ``"scan"``: status equal on every lane, ``us`` within
+    F32_SOLVE_REL_BOUND of max|us| on the lanes at the same count (more
+    than half of them); float64 at B=8, T=24, card against CPU."""
+
+    from ilqr_tpu_torch.config import ILQRConfig
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.batching import (batch_metrics,
+                                                  make_batch_solver)
+
+    B, T = STRICT["B"], STRICT["T"]
+    cfg = ILQRConfig(max_iter=STRICT["max_iter"], tol=STRICT["tol"],
+                     tol_grad=0.0, tol_grad_rel=0.0, exact_ls_delta=True,
+                     backward_backend="pallas")
+    x0s, us0 = scenario_inputs(B, T, torch.float32, 0, device)
+
+    def solver(cfg_run, dev=device):
+        return make_batch_solver(problem, cfg_run, engine="fused",
+                                 device=dev)
+
+    name = cuda_riccati.kernel_name(N, M, torch.float32)
+    cuda_riccati.reset_launch_counts()
+    res, solve_s = timed_call(solver(cfg), x0s, us0)
+    counts = dict(cuda_riccati.launch_counts)
+    passes = int(res.iterations.max())
+    assert counts[name] == passes >= 1, (counts, passes)
+    assert sum(counts.values()) == passes, counts
+    assert res.us.dtype == torch.float32 and res.us.shape == (B, T, M)
+    for f in (res.xs, res.us, res.cost):
+        assert bool(torch.isfinite(f).all())
+
+    cuda_riccati.reset_launch_counts()
+    ref, scan_s = timed_call(solver(cfg.replace(backward_backend="scan")),
+                             x0s, us0)
+    assert cuda_riccati.launches() == 0
+    assert torch.equal(res.status, ref.status), (
+        lanes_by_status(res.status), lanes_by_status(ref.status))
+    # Which pass a lane's sum((du)^2) first falls under 1e-6 is decided by
+    # rounding on about a third of the lanes (phase solve's config stops on
+    # the gradient test first): the plain version against the scan backend
+    # on the CPU, these inputs, ended 68.8 % of the lanes on the same count.
+    # Those lanes are held as phase solve holds them; the rest reported.
+    same_it = res.iterations == ref.iterations
+    frac_same = float(same_it.float().mean())
+    assert frac_same > 0.5, frac_same
+    us_rel = float((res.us[same_it] - ref.us[same_it]).abs().max()
+                   / ref.us.abs().max())
+    assert us_rel <= F32_SOLVE_REL_BOUND, us_rel
+
+    x64, u64 = scenario_inputs(8, 24, torch.float64, 40, "cpu")
+    f64 = card_against_cpu(
+        lambda dev: solver(cfg, dev)(x64, u64), device,
+        lambda: cuda_riccati.launch_counts[
+            cuda_riccati.kernel_name(N, M, torch.float64)], "us")
+    assert f64["launches"] == max(f64["iterations"]) >= 1, f64
+
+    metrics = {k: float(v) for k, v in batch_metrics(res).items()}
+    emit(phase="strict", B=B, T=T, n=N, m=M, dtype="float32",
+         engine="fused", config=dict(STRICT, tol_grad=0.0, tol_grad_rel=0.0,
+                                     exact_ls_delta=True),
+         passes=passes, launches=counts, solve_s=solve_s,
+         solves_per_s=B / solve_s, lanes_by_status=lanes_by_status(
+             res.status),
+         mean_iterations=metrics["mean_iterations"],
+         max_iterations=passes, mean_cost=metrics["mean_cost"],
+         tpu=STRICT_TPU,
+         scan={"solve_s": scan_s, "status_equal": True,
+               "lanes_same_iterations": frac_same,
+               "us_rel_diff_same_lanes": us_rel,
+               "bound": F32_SOLVE_REL_BOUND},
+         f64=dict(B=8, T=24, **f64))
+    return {name: counts[name]}
+
+
+def rbd_ls_config(max_iter, T, backend="pallas"):
+    """``bench.py --config rbd --ls-warm --ls-expected --ls-c 0.4``."""
+
+    return rbd_config(max_iter, T, backend).replace(
+        ls_expected_decrease=True, ls_c=RBD_LS["ls_c"],
+        ls_alpha_warm_start=True)
+
+
+def phase_rbd_ls(case, device):
+    """``bench.py --config rbd --ls-warm --ls-expected --ls-c 0.4``: the
+    RBD 2-DoF arm, B=256, T=100 (cut from 1000, as ``rbd_solve``), float32,
+    ``make_chunked_batch_solver`` with ``bench.py``'s ``iter_chunk=10`` and
+    ``snapshot_every=4``, the ``(16, 8)`` kernel.  One pass through each
+    backend from the same state: the worst lane's ``us`` within
+    F32_FIRST_PASS_REL_BOUND_RBD of max|us| and the same alpha on every
+    lane (as ``rbd_solve``).  Then two passes through each, the second
+    ladder starting from the carried alpha: the carried alpha equal on
+    every lane.  ``max_iter`` is cut to what RBD_LS_BUDGET_S affords from
+    the time of those two passes, at least 2 (printed): at 2 the two-pass
+    kernel run is the solve, its launches set to 0 before and read after
+    (launches equal passes).  Float64 at B=8, T=24, 2 passes in chunks of
+    one (the alpha carried across a chunk boundary), card against CPU."""
+
+    from ilqr_tpu_torch import batched
+    from ilqr_tpu_torch.ops import cuda_riccati
+
+    problem = case[0]
+    n, m, B, T = (problem.state_dim, problem.control_dim, RBD_LS["B"],
+                  RBD["T_cut"])
+    name = cuda_riccati.kernel_name(n, m, torch.float32)
+    print(f"chip_smoke: rbd_ls: T cut from {RBD['T']} to {T}, as in "
+          f"rbd_solve", file=sys.stderr, flush=True)
+    x0s, us0 = rbd_inputs(case, B, T, torch.float32, 0, device)
+    us_bl = us0.movedim(0, -1).contiguous()
+    xs_bl = batched.rollout_bl(problem, x0s.T.contiguous(), us_bl)
+    cost0 = batched.total_cost_bl(problem, xs_bl, us_bl)
+    xs0 = xs_bl.movedim(-1, 0).contiguous()
+
+    def solve(max_iter, backend="pallas", dev=device, xs=xs0, us=us0,
+              iter_chunk=RBD_LS["iter_chunk"], chunks=None):
+        """``(result, seconds)`` of the chunked solve."""
+
+        return timed_call(batched.make_chunked_batch_solver(
+            problem, rbd_ls_config(max_iter, xs.shape[1] - 1, backend),
+            iter_chunk=iter_chunk, device=dev,
+            snapshot_every=RBD["snapshot_every"],
+            on_chunk=None if chunks is None
+            else lambda p, r: chunks.append((p, r))), xs, us)
+
+    first_pass = compare_first_pass(solve(1)[0], solve(1, "scan")[0])
+    chunks = []
+    cuda_riccati.reset_launch_counts()
+    res, solve_s = solve(2, chunks=chunks)
+    counts = dict(cuda_riccati.launch_counts)
+    two = solve(2, "scan")[0]
+    assert torch.equal(res.iterations, two.iterations)
+    assert torch.equal(res.alpha, two.alpha), (res.alpha, two.alpha)
+    two_passes_s = solve_s
+
+    max_iter = max(2, min(RBD["max_iter"],
+                          int(RBD_LS_BUDGET_S / (solve_s / 2))))
+    print(f"chip_smoke: rbd_ls: max_iter cut from {RBD['max_iter']} to "
+          f"{max_iter} by the {RBD_LS_BUDGET_S} s budget"
+          + (" (the two-pass run is the solve)" if max_iter == 2 else ""),
+          file=sys.stderr, flush=True)
+    if max_iter > 2:
+        chunks = []
+        cuda_riccati.reset_launch_counts()
+        res, solve_s = solve(max_iter, chunks=chunks)
+        counts = dict(cuda_riccati.launch_counts)
+    passes = chunks[-1][0]
+    by_status = check_rbd_result(res, cost0, B, T, n, m, torch.float32)
+    assert counts[name] == passes >= 1, (counts, passes)
+    assert sum(counts.values()) == passes, counts
+
+    x64, u64 = rbd_inputs(case, 8, 24, torch.float64, 70, "cpu")
+    xs64 = batched.rollout_bl(problem, x64.T.contiguous(),
+                              u64.movedim(0, -1).contiguous()
+                              ).movedim(-1, 0).contiguous()
+    name64 = cuda_riccati.kernel_name(n, m, torch.float64)
+    f64 = card_against_cpu(
+        lambda dev: solve(2, dev=dev, xs=xs64, us=u64, iter_chunk=1)[0],
+        device, lambda: cuda_riccati.launch_counts[name64], "us", "alpha")
+    assert f64["launches"] == max(f64["iterations"]) >= 1, f64
+
+    emit(phase="rbd_ls", B=B, T=T, T_config=RBD["T"], n=n, m=m,
+         dtype="float32", ls_expected_decrease=True, ls_c=RBD_LS["ls_c"],
+         ls_alpha_warm_start=True, iter_chunk=RBD_LS["iter_chunk"],
+         snapshot_every=RBD["snapshot_every"], max_iter=max_iter,
+         max_iter_config=RBD["max_iter"], budget_s=RBD_LS_BUDGET_S,
+         two_passes_s=two_passes_s, passes=passes, chunks=chunks,
+         launches=counts, solve_s=solve_s, lanes_by_status=by_status,
+         mean_iterations=float(res.iterations.float().mean()),
+         mean_cost_ratio=float((res.cost / cost0).mean()),
+         carried_alpha={"mean": float(res.alpha.float().mean()),
+                        "min": float(res.alpha.min())},
+         after_first_pass=first_pass,
+         after_second_pass={"alpha_equal": True,
+                            "alpha_mean": float(two.alpha.mean())},
+         f64=dict(B=8, T=24, passes_cap=2, iter_chunk=1, **f64))
+    return {name: counts[name]}
+
+
+def mpc_rbd_config(backend="scan"):
+    """``bench.py --config mpc_batch --problem rbd``'s solver flags."""
+
+    from ilqr_tpu_torch.config import ILQRConfig
+
+    return ILQRConfig(max_iter=MPC_RBD["max_iter"], tol=1e-5,
+                      tol_grad=1e-10, tol_grad_rel=1e-6, adaptive_reg=True, reg=1.0,
+                      reg_min=1e-3, reg_scale=10.0, reg_backtrack_trigger=1,
+                      backward_backend=backend)
+
+
+def mpc_rbd_inputs(case, B, dtype, seed, device):
+    """``[B, n]`` starts of the RBD fleet: ``bench.py``'s nominal state,
+    its attitude perturbed by MPC_RBD["attitude"] and the base position and
+    joints by MPC_RBD["pose"], at rest."""
+
+    problem, nominal, _ = case
+    n = problem.state_dim
+    scale = torch.tensor([MPC_RBD["attitude"]] * 3
+                         + [MPC_RBD["pose"]] * (n // 2 - 3) + [0.0] * (n // 2),
+                         dtype=torch.float64)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x0s = (torch.tensor(nominal, dtype=torch.float64)
+           + scale * torch.randn((B, n), generator=gen, dtype=torch.float64))
+    return x0s.to(dtype).to(device)
+
+
+def phase_mpc_batch_rbd(case, device):
+    """``bench.py --config mpc_batch --problem rbd``: ``batch_mpc_run`` of
+    the RBD 2-DoF arm, B=64, H=50, float32, first with ``bench.py``'s
+    backend (``"scan"``), then with ``"pallas"``, whose every replan
+    iteration launches the batch-first entry of the ``(16, 8)``
+    instantiation.  First one pass of the first replan (``solve`` from the
+    fleet's starts and the zero warm start, rolled out) through each
+    backend: the worst lane's ``us`` within F32_FIRST_PASS_REL_BOUND_RBD of
+    max|us| and the same alpha on every lane (a whole replan of 10 passes
+    amplifies the rounding past that: 5.4e-3 of max|u| on an H100).  Its
+    time cuts the replans' ``max_iter`` from 10 and then ``n_steps`` from
+    50, at least 2, so that the two runs fit MPC_RBD_BUDGET_S (both
+    printed).  Launches equal passes and at least ``n_steps``; over the
+    runs status equal on every lane and replan, the median lane's ``us``
+    and the worst planned cost within the RBD solve bars (the worst lane
+    printed); ms a replan and scenario-replans/s.  Float64 at B=2, H=10, 2
+    steps of the cut ``max_iter``, card against CPU."""
+
+    import functools
+
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.mpc import batch_mpc_run
+    from ilqr_tpu_torch.problem import problem_dynamics, rollout
+    from ilqr_tpu_torch.solver import solve
+
+    problem = case[0]
+    n, m = problem.state_dim, problem.control_dim
+    B, H, STEPS = MPC_RBD["B"], MPC_RBD["H"], MPC_RBD["n_steps"]
+    x0s = mpc_rbd_inputs(case, B, torch.float32, 6, device)
+    name = cuda_riccati.kernel_name(n, m, torch.float32)
+
+    # One pass of the first replan through each backend.
+    us_warm = torch.zeros((B, H, m), dtype=torch.float32, device=device)
+    xs_warm = rollout(functools.partial(problem_dynamics, problem), x0s,
+                      us_warm)
+    one = {}
+    for backend in ("scan", "pallas"):
+        cuda_riccati.reset_launch_counts()
+        one[backend] = timed_call(
+            solve, problem, xs_warm, us_warm, None,
+            mpc_rbd_config(backend).replace(max_iter=1), device)
+        assert count_batch_first(name) == (backend == "pallas"), backend
+    first_pass = compare_first_pass(one["pallas"][0], one["scan"][0])
+    pass_s = one["pallas"][1]
+    # A replan's later passes climb more rungs than the first: count each
+    # pass 1.5 times; two runs of at least 2 steps.
+    max_iter = max(1, min(MPC_RBD["max_iter"], int(
+        MPC_RBD_BUDGET_S / (2 * 2 * 1.5 * pass_s))))
+    n_steps = max(2, min(STEPS, int(
+        MPC_RBD_BUDGET_S / (2 * max_iter * 1.5 * pass_s))))
+    for what, cut, uncut in (("max_iter", max_iter, MPC_RBD["max_iter"]),
+                             ("n_steps", n_steps, STEPS)):
+        if cut < uncut:
+            print(f"chip_smoke: mpc_batch_rbd: {what} cut from {uncut} to "
+                  f"{cut} by the {MPC_RBD_BUDGET_S} s budget (one pass of "
+                  f"the first replan took {pass_s:.1f} s)", file=sys.stderr,
+                  flush=True)
+
+    def run(backend, x=x0s, horizon=H, steps=n_steps, dev=device):
+        return batch_mpc_run(problem, x, horizon, steps,
+                             mpc_rbd_config(backend).replace(
+                                 max_iter=max_iter), device=dev)
+
+    def check(r):
+        assert r.us.shape == (B, n_steps, m), r.us.shape
+        assert r.xs.shape == (B, n_steps + 1, n), r.xs.shape
+        assert r.us.dtype == torch.float32
+        for f in (r.xs, r.us, r.costs):
+            assert bool(torch.isfinite(f).all())
+
+    cuda_riccati.reset_launch_counts()
+    ref, scan_s = timed_call(run, "scan")
+    assert cuda_riccati.launches() == 0
+    cuda_riccati.reset_launch_counts()
+    res, pallas_s = timed_call(run, "pallas")
+    launches = count_batch_first(name)
+    passes = int(res.iterations.max(dim=0).values.sum())
+    assert launches == passes >= n_steps, (launches, passes)
+    check(res)
+    check(ref)
+    assert torch.equal(res.statuses, ref.statuses), (res.statuses,
+                                                     ref.statuses)
+    lane_rel = ((res.us - ref.us).abs().amax(dim=(1, 2))
+                / ref.us.abs().max())
+    cost_rel = (res.costs - ref.costs).abs() / ref.costs.abs()
+    median = float(lane_rel.median())
+    assert median <= F32_SOLVE_MEDIAN_BOUND_RBD, median
+    assert float(cost_rel.max()) <= F32_SOLVE_COST_BOUND_RBD, cost_rel.max()
+
+    x64 = mpc_rbd_inputs(case, 2, torch.float64, 7, "cpu")
+    name64 = cuda_riccati.kernel_name(n, m, torch.float64)
+    f64 = card_against_cpu(
+        lambda dev: run("pallas", x64, 10, 2, dev), device,
+        lambda: count_batch_first(name64), "xs", "us", "costs")
+    passes64 = int(torch.tensor(f64["iterations"]).max(dim=0).values.sum())
+    assert f64["launches"] == passes64 >= 2, f64
+
+    def rates(total_s):
+        return {"total_s": total_s, "ms_per_replan": total_s / n_steps * 1e3,
+                "scenario_replans_per_s": B * n_steps / total_s}
+
+    emit(phase="mpc_batch_rbd", B=B, horizon=H, n=n, m=m, dtype="float32",
+         n_steps=n_steps, n_steps_config=STEPS, max_iter=max_iter,
+         max_iter_config=MPC_RBD["max_iter"], budget_s=MPC_RBD_BUDGET_S,
+         first_replan_one_pass_s={b: t for b, (_, t) in one.items()},
+         statuses=lanes_by_status(res.statuses),
+         mean_iterations=float(res.iterations.float().mean()),
+         passes=passes, batch_first_launches={name: launches},
+         pallas=rates(pallas_s), scan=rates(scan_s),
+         first_replan_first_pass=first_pass,
+         vs_scan=dict(status_equal=True, median_lane_rel=median,
+                      worst_lane_rel=float(lane_rel.max()),
+                      worst_lane=int(lane_rel.argmax()),
+                      worst_cost_rel=float(cost_rel.max()),
+                      median_bound=F32_SOLVE_MEDIAN_BOUND_RBD,
+                      cost_bound=F32_SOLVE_COST_BOUND_RBD),
+         f64=dict(B=2, horizon=10, n_steps=2, **f64))
+    return {name: launches, name64: f64["launches"]}
+
+
+def ddp_inputs(B, T, seed, dtype, device):
+    """``scripts/bench_ddp.py``'s 2-link scenarios: ``x0`` 0.2 and ``us0``
+    0.01 times numpy's ``default_rng(seed)`` normals."""
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x0 = 0.2 * rng.standard_normal((B, N))
+    us0 = 0.01 * rng.standard_normal((B, T, M))
+    return (torch.as_tensor(x0).to(dtype).to(device),
+            torch.as_tensor(us0).to(dtype).to(device))
+
+
+def phase_ddp(problem, device):
+    """``scripts/bench_ddp.py``'s A/B: its four rows through
+    ``make_batch_solver(engine="vmap")`` with ``"scan"`` (``ddp`` needs
+    it), float32, at its B and config, T cut to DDP["T_cut"] (printed):
+    converged, mean and max iterations, mean cost and seconds of each row
+    beside the TPU log's (at T=100).
+    ``ddp`` takes the second-order dynamics tensor from
+    ``derivatives.dynamics_hessians`` into the recursion.  Then float64 at
+    B=8, T=24 with ``ddp`` and ``reg_in_value``, card against CPU."""
+
+    from ilqr_tpu_torch.config import ILQRConfig, Status
+    from ilqr_tpu_torch.ops import cuda_riccati
+    from ilqr_tpu_torch.parallel.batching import make_batch_solver
+
+    B, T = DDP["B"], DDP["T_cut"]
+    print(f"chip_smoke: ddp: T cut from {DDP['T']} to {T}, so that the "
+          f"script fits its time", file=sys.stderr, flush=True)
+    base = ILQRConfig(max_iter=DDP["max_iter"], tol=DDP["tol"],
+                      exact_ls_delta=True)
+    x0s, us0 = ddp_inputs(B, T, 0, torch.float32, device)
+    rows = {}
+    for label, flags in DDP_ROWS:
+        cuda_riccati.reset_launch_counts()
+        res, seconds = timed_call(make_batch_solver(
+            problem, base.replace(**flags), engine="vmap", device=device),
+            x0s, us0)
+        assert cuda_riccati.launches() == 0
+        assert res.us.shape == (B, T, M) and res.us.dtype == torch.float32
+        for f in (res.xs, res.us, res.cost):
+            assert bool(torch.isfinite(f).all()), label
+        assert not bool((res.status == int(Status.RUNNING)).any()), label
+        rows[label] = dict(
+            converged=int((res.status == int(Status.CONVERGED)).sum()),
+            lanes_by_status=lanes_by_status(res.status),
+            mean_iterations=float(res.iterations.float().mean()),
+            max_iterations=int(res.iterations.max()),
+            mean_cost=float(res.cost.mean()), seconds=seconds)
+
+    x64, u64 = ddp_inputs(8, 24, 1, torch.float64, "cpu")
+    cfg64 = base.replace(ddp=True, reg_in_value=True)
+    f64 = card_against_cpu(
+        lambda dev: make_batch_solver(problem, cfg64, engine="vmap",
+                                      device=dev)(x64, u64), device,
+        lambda: cuda_riccati.launches(), "us")
+    assert f64["launches"] == 0, f64
+    emit(phase="ddp", B=B, T=T, T_config=DDP["T"], n=N, m=M,
+         dtype="float32", engine="vmap",
+         backward_backend="scan", config=dict(DDP, exact_ls_delta=True),
+         rows=rows, tpu=DDP_TPU,
+         f64=dict(B=8, T=24, ddp=True, reg_in_value=True, **f64))
+
+
+# nvcc processes the background build runs at once (of the host's 8 cores).
+BACKGROUND_NVCC = 3
+
+
+@contextlib.contextmanager
+def background_build(names):
+    """Build the libraries ``names`` (``_build.build``: one ``nvcc`` each,
+    BACKGROUND_NVCC at once) in a process of its own at the lowest
+    priority, so that the phases run beside it on the host's other cores
+    and lose little of their own.  Yields ``join()``, which waits for it, raises with the
+    compiler's output if a build failed and returns ``{library: nvcc
+    seconds}``.  On leaving the block whatever is left of the process and of
+    the ``nvcc`` it started is killed."""
+
+    import os
+    import signal
+    from pathlib import Path
+
+    # BACKGROUND_NVCC at a time, the slowest (the cluster plans, 30 to 50 s
+    # each) first: all at once, the phases beside them ran up to 4 times
+    # slower on an H100's host.
+    names = sorted(names, key=lambda n: not n.startswith("riccati_cluster"))
+    code = ("import json, os, sys; os.nice(19); "
+            "from ilqr_tpu_torch.ops import _build; "
+            "k = int(sys.argv[1]); names = sys.argv[2:]; "
+            "[_build.build(names[i:i + k]) for i in range(0, len(names), k)]; "
+            "print(json.dumps(_build.build_seconds))")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(BACKGROUND_NVCC),
+                             *names],
+                            cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+
+    def join():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"background build failed (exit "
+                               f"{proc.returncode}):\n{err}")
+        return json.loads(out.splitlines()[-1])
+
+    try:
+        yield join
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
 def ptxas_summary(_build, libraries=None):
     """``{kernel: "registers, spill bytes, shared memory"}`` from the logs
     of the build (``nvcc -Xptxas -v``), template arguments as the name."""
@@ -3261,8 +3901,6 @@ def main():
         return 0
     t_start = time.perf_counter()
 
-    from ilqr_tpu_torch.config import ILQRConfig
-    from ilqr_tpu_torch.models.two_link import make_two_link_problem
     from ilqr_tpu_torch.ops import _build
     from ilqr_tpu_torch.precision import resolve_device
 
@@ -3279,25 +3917,37 @@ def main():
     from ilqr_tpu_torch.ops import cuda_riccati
 
     t0 = time.perf_counter()
-    # Every source with fixed instantiations and its stage-clock build, and
-    # the instantiations of NEW_SHAPES, one nvcc each, all together.
+    # Every source with fixed instantiations and its stage-clock build, one
+    # nvcc each, all together.
+    fixed = list(_build.SOURCES) + list(_build.VARIANTS)
+    _build.build(fixed)
+    for name in _build.SOURCES:
+        _build.load(name)
+    # The instantiations of NEW_SHAPES and the stage-clock builds of the
+    # float32 rows of riccati_large.cu and riccati_xl.cu (shapes): built in
+    # the background while the phases that launch none of them run.
     instances = [cuda_riccati.library_and_symbol(n, m, dtype)[0]
                  for n, m in NEW_SHAPES for dtype in shape_types(n, m)]
-    # The stage-clock builds of the float32 rows of riccati_large.cu and
-    # riccati_xl.cu (shapes).
     clocks = [f"{name}_clocks" for name in instances
               if name.startswith(tuple(f"{src}_" for src in ONE_LANE_A_BLOCK))
               and name.endswith("f32")]
-    libraries = (list(_build.SOURCES) + list(_build.VARIANTS) + instances
-                 + clocks)
-    _build.build(libraries)
-    for name in list(_build.SOURCES) + instances:
-        _build.load(name)
-    built = dict(_build.build_seconds)
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         sources=sorted(SOURCE_FILES.values()),
-         libraries=libraries, nvcc_seconds=built,
-         ptxas=ptxas_summary(_build, libraries))
+    with background_build(instances + clocks) as join_instances:
+        emit(phase="build", seconds=time.perf_counter() - t0,
+             sources=sorted(SOURCE_FILES.values()), libraries=fixed,
+             nvcc_seconds=dict(_build.build_seconds),
+             ptxas=ptxas_summary(_build, fixed),
+             building_in_background=instances + clocks)
+        return run_phases(device, join_instances, instances, t_start)
+
+
+def run_phases(device, join_instances, instances, t_start):
+    """Every phase of the default run, then the ``total``, ``kernels`` and
+    last lines.  The phases that launch an instantiation of NEW_SHAPES run
+    after ``join_instances()``."""
+
+    from ilqr_tpu_torch.config import ILQRConfig
+    from ilqr_tpu_torch.models.two_link import make_two_link_problem
+    from ilqr_tpu_torch.ops import _build
 
     problem = make_two_link_problem()
     config = ILQRConfig(max_iter=30, tol=1e-5, tol_grad=1e-10,
@@ -3316,14 +3966,6 @@ def main():
     launches.update(phase_rbd_solve(cases[False], device, one_pass_full))
     launches.update(phase_rbd_parity(cases[False], device))
     launches.update(phase_rbd_6dof(cases[True], device))
-    dual_launches, dual_rows = phase_rbd_dual(rbd_case("dual"), device)
-    launches.update(dual_launches)
-    sources.update(dict.fromkeys(dual_rows, XL_SOURCE))
-    rows.update(dual_rows)
-    five_launches, five_rows = phase_rbd_five(rbd_case("five"), device)
-    launches.update(five_launches)
-    sources.update(dict.fromkeys(five_rows, CLUSTER_SOURCE))
-    rows.update(five_rows)
 
     bf_rows = phase_batched_entry(problem, cases, device)
     bf_launches = phase_vmap_solve(problem, solve_cfg, fused, device)
@@ -3342,14 +3984,35 @@ def main():
     add(bf_launches, al_launches)
     bf_rows.update(al_rows)
     phase_trace_profile(problem, device)
+    add(launches, phase_strict(problem, device))
+    add(launches, phase_rbd_ls(cases[False], device))
+    add(bf_launches, phase_mpc_batch_rbd(cases[False], device))
+    phase_ddp(problem, device)
+    add(bf_launches, phase_sharded(problem, solve_cfg, device))
+    phase_entry(device)
+    phase_examples(device)
+
+    # The phases that launch the instantiations built in the background.
+    t0 = time.perf_counter()
+    built = join_instances()
+    for name in instances:
+        _build.load(name)
+    emit(phase="build_instances", waited_s=time.perf_counter() - t0,
+         libraries=sorted(built), nvcc_seconds=built,
+         ptxas=ptxas_summary(_build, sorted(built)))
+    dual_launches, dual_rows = phase_rbd_dual(rbd_case("dual"), device)
+    launches.update(dual_launches)
+    sources.update(dict.fromkeys(dual_rows, XL_SOURCE))
+    rows.update(dual_rows)
+    five_launches, five_rows = phase_rbd_five(rbd_case("five"), device)
+    launches.update(five_launches)
+    sources.update(dict.fromkeys(five_rows, CLUSTER_SOURCE))
+    rows.update(five_rows)
     shape_rows, shape_bf_rows = phase_shapes(device, built)
     al_rbd_launches, al_rbd_rows = phase_al_rbd(cases, device)
     add(bf_launches, al_rbd_launches)
     al_6dof_launches, al_6dof_rows = phase_al_6dof(cases, device)
     add(bf_launches, al_6dof_launches)
-    add(bf_launches, phase_sharded(problem, solve_cfg, device))
-    phase_entry(device)
-    phase_examples(device)
     marks = [("start", t_start)] + EMITTED
     emit(phase="total", seconds=time.perf_counter() - t_start,
          seconds_by_phase={p: t - t_prev for (_, t_prev), (p, t)
